@@ -1,11 +1,13 @@
 """Experiment presets of the port: the same dataclasses, field names,
 defaults and presets as ``ecm_tpu/configs/base.py``.
 
-The "auto" knobs resolve on CUDA the way the JAX ones resolve on a TPU
-(``regress_mode`` -> "fused" and ``agg_fused`` "auto" -> on, at eval on a
-CUDA tensor), except ``agg_layout``: "auto" resolves to "standard", because
-the grouped layout is not ported. ``remat`` is a training knob and has no
-effect on the eval forward.
+The "auto" knobs resolve on CUDA the way the JAX ones resolve on a TPU, at
+eval on a CUDA tensor: ``regress_mode`` -> "fused", ``agg_fused`` "auto" ->
+on, and ``agg_layout`` "auto" -> "grouped" when max_disp/4 % 16 == 0 (else
+"standard"); on the CPU they resolve to the plain paths. "grouped" keeps the
+JAX name of the aggregation's layer-kernel dispatch; the port computes it on
+NDHWC volumes. ``remat`` is a training knob and has no effect on the eval
+forward.
 """
 
 from __future__ import annotations
@@ -123,7 +125,7 @@ CONFIGS: dict[str, ExperimentConfig] = {
         ),
         train=TrainConfig(num_steps=600, log_every=50, ckpt_every=10_000),
     ),
-    # the same gate in the grouped layout (not ported: building it raises)
+    # the same gate in the grouped layout
     "overfit_gate_grouped": ExperimentConfig(
         model=ModelConfig(max_disp=64, bf16=True, agg_layout="grouped"),
         data=DataConfig(
@@ -137,3 +139,6 @@ CONFIGS: dict[str, ExperimentConfig] = {
 SLICE_OVERRIDES = dict(
     agg_layout="standard", agg_fused="on", use_pallas=True, regress_mode="fused"
 )
+# the second slice: kitti_infer along the JAX package's default TPU path
+# (grouped layer kernels), with the cost-volume and regression kernels
+SLICE2_OVERRIDES = dict(agg_layout="grouped", use_pallas=True, regress_mode="fused")

@@ -29,10 +29,13 @@
 // type), padded to the channel group, and are read through the read-only
 // cache: every thread of a warp reads the same address, a broadcast.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
+
+using ecm::from_f32;
+using ecm::to_f32;
+using ecm::Vec;
 
 constexpr int kThreads = 256;
 constexpr int kCm = 32;  // stage-1 output channels held in registers per pass
@@ -51,50 +54,6 @@ struct Params {
   int relu1, relu2, residual;
   int td, th, tw, nd, nh, nw;
 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// 16-byte vector load of N consecutive input values, widened to f32.
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* p, float* o) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* o) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
-      o[2 * k] = f.x;
-      o[2 * k + 1] = f.y;
-    }
-  }
-};
-
-// acc[0:32] += xv * w[0:32] with w 16-byte aligned.
-__device__ __forceinline__ void fma32(float* acc, float xv, const float* w) {
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float4 q = __ldg(w4 + k);
-    acc[4 * k] += xv * q.x;
-    acc[4 * k + 1] += xv * q.y;
-    acc[4 * k + 2] += xv * q.z;
-    acc[4 * k + 3] += xv * q.w;
-  }
-}
 
 template <typename T, int CO2>
 __global__ void __launch_bounds__(kThreads, 2) fused_pair_kernel(const Params P) {
@@ -139,11 +98,11 @@ __global__ void __launch_bounds__(kThreads, 2) fused_pair_kernel(const Params P)
                   Vec<T>::load(xp + ci, xv);
 #pragma unroll
                   for (int j = 0; j < Vec<T>::N; ++j)
-                    fma32(acc, xv[j], wp + (size_t)(ci + j) * P.Cm_pad);
+                    ecm::fma_strip<kCm>(acc, xv[j], wp + (size_t)(ci + j) * P.Cm_pad);
                 }
               } else {
                 for (int ci = 0; ci < P.Cin; ++ci)
-                  fma32(acc, to_f32(xp[ci]), wp + (size_t)ci * P.Cm_pad);
+                  ecm::fma_strip<kCm>(acc, to_f32(xp[ci]), wp + (size_t)ci * P.Cm_pad);
               }
             }
           }
@@ -187,7 +146,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_pair_kernel(const Params P)
           for (int cm = 0; cm < P.Cm; ++cm) {
             const float yv = to_f32(y1[(size_t)cm * P1 + pos]);
             if constexpr (CO2 == 32) {
-              fma32(acc, yv, wp + (size_t)cm * P.Cout_pad);
+              ecm::fma_strip<32>(acc, yv, wp + (size_t)cm * P.Cout_pad);
             } else {
 #pragma unroll
               for (int j = 0; j < CO2; ++j)

@@ -4,8 +4,9 @@ Each ``ecm_torch/csrc/<name>.cu`` is compiled on first use by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, under
 ``build/ecm_torch/`` at the root of the checkout, and loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds, not minutes). The library's
-file name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.
+file name carries a hash of the source, of every shared header
+(``csrc/*.cuh``) and of the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*``
 (``ctypes.c_void_p``), its sizes as ``int``, and returns
@@ -30,7 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
 )
-KERNELS = ("cost_volume", "fused_conv3d_pair", "regression")
+KERNELS = ("conv3d_bn", "cost_volume", "deconv3d_bn", "fused_conv3d_pair", "regression")
 
 
 def _nvcc() -> str:
@@ -44,8 +45,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

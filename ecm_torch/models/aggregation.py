@@ -1,14 +1,24 @@
 """Stacked-hourglass 3D cost aggregation with explicit context mapping
-(port of ``ecm_tpu/models/aggregation.py``, standard NDHWC layout).
+(port of ``ecm_tpu/models/aggregation.py``; every volume is NDHWC).
 
     cost0 = dres1(dres0(vol) [+ context0]) + dres0(vol) [+ context0]
     out_i, pre_i, post_i = hourglass_i(out_{i-1} [+ context_i], pre_1, post_{i-1}, cost0)
     cost = classif_last(out_last)              (eval: only the last head runs)
 
-With ``fused`` on (or "auto" on a CUDA tensor), the stride-1 pairs run
-through the fused CUDA kernel with inference-folded BN: dres0 with the
-context0 map added in its epilogue, dres1 with its residual, and the last
-classifier head. Parameters are the same in both modes.
+Three eval paths, one set of parameters, BN folded for inference where a
+kernel runs:
+
+- ``layout="standard"``, ``fused`` off: cuDNN convolutions throughout.
+- ``layout="standard"`` with ``fused`` on (or "auto" on a CUDA tensor): the
+  stride-1 pairs run through the fused pair kernel: dres0 with the context0
+  map in its epilogue, dres1 with its residual, and the last classifier.
+- ``layout="grouped"``: the JAX package's grouped eval dispatch, computed on
+  NDHWC tensors (the disparity-folded layout itself exists for the TPU's
+  lanes): the four dres convs one by one through ``conv3d_bn_s1`` (context0
+  map fused into dres0_2, the residual into dres1_2), each hourglass's conv1
+  through ``conv3d_bn_down`` and conv6 with its ``+ cost0`` through
+  ``deconv3d_bn``, and the last classifier through the fused pair kernel.
+  ``fused`` is ignored, as in JAX.
 """
 
 from __future__ import annotations
@@ -20,6 +30,10 @@ from torch import nn
 from ecm_torch.models.context import ContextMapping
 from ecm_torch.models.layers import ConvBN, ConvTransposeBN, conv, fold_bn
 from ecm_torch.ops.cuda_fused_agg import fused_conv3d_pair
+from ecm_torch.ops.cuda_gband import conv3d_bn_down, conv3d_bn_s1
+from ecm_torch.ops.cuda_gdeconv import deconv3d_bn
+
+LAYOUTS = ("standard", "grouped")
 
 
 def _conv3(cin: int, cout: int, stride: int = 1, relu: bool = True) -> ConvBN:
@@ -39,12 +53,23 @@ class Hourglass(nn.Module):
         self.conv5 = ConvTransposeBN(2 * c, 2 * c)
         self.conv6 = ConvTransposeBN(2 * c, c)
 
-    def forward(self, x, presqu=None, postsqu=None, residual=None):
-        out = self.conv1(x)
+    def forward(self, x, presqu=None, postsqu=None, residual=None, kernels=False):
+        """``kernels``: conv1 through ``conv3d_bn_down`` and conv6 with the
+        residual through ``deconv3d_bn`` (the grouped layout's dispatch);
+        conv2 to conv5 stay on cuDNN, as they stay on XLA in JAX."""
+        if kernels:
+            c1 = self.conv1
+            out = conv3d_bn_down(x, c1.conv.weight, *fold_bn(c1.bn), relu=c1.relu)
+        else:
+            out = self.conv1(x)
         pre = self.conv2(out)
         pre = F.relu(pre + postsqu) if postsqu is not None else F.relu(pre)
         out = self.conv4(self.conv3(pre))
         post = F.relu(self.conv5(out) + (presqu if presqu is not None else pre))
+        if kernels:
+            c6 = self.conv6
+            out = deconv3d_bn(post, c6.deconv.weight, *fold_bn(c6.bn), residual, relu=c6.relu)
+            return out, pre, post
         out = self.conv6(post)
         if residual is not None:
             out = out + residual
@@ -75,15 +100,9 @@ class ECMAggregation(nn.Module):
         num_hourglass: int = 3,
         context_fusion: str = "add",
         context_stages: tuple[int, ...] = (0, 1, 2, 3),
-        layout: str = "standard",
         fused: str = "off",
     ):
         super().__init__()
-        if layout != "standard":
-            raise NotImplementedError(
-                f"agg layout {layout!r}: only 'standard' (NDHWC) is ported; the "
-                "grouped layout exists for the TPU's 128-lane tiles (ROADMAP)"
-            )
         if fused not in ("off", "on", "auto"):
             raise ValueError(f"fused must be off|on|auto, got {fused!r}")
         c = channels
@@ -114,12 +133,19 @@ class ECMAggregation(nn.Module):
             self.fused == "on" or (self.fused == "auto" and volume.is_cuda)
         )
 
-    def forward(self, volume: torch.Tensor, ctx2d: torch.Tensor) -> list[torch.Tensor]:
+    def forward(
+        self, volume: torch.Tensor, ctx2d: torch.Tensor, layout: str = "standard"
+    ) -> list[torch.Tensor]:
         if self.training:
             raise NotImplementedError("the training forward is not ported yet (ROADMAP queue 1)")
-        fused = self.use_fused(volume)
+        if layout not in LAYOUTS:
+            raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+        kernels = layout == "grouped"
+        fused = not kernels and self.use_fused(volume)
         cm0 = self._context(0)
-        if fused:
+        if kernels:
+            cost0 = self._dres_kernels(volume, ctx2d)
+        elif fused:
             ctx_map = cm0(ctx2d, return_map=True) if cm0 is not None else None
             x = fused_conv3d_pair(
                 volume, *self._fold(self.dres0_1), *self._fold(self.dres0_2), ctx=ctx_map
@@ -140,13 +166,13 @@ class ECMAggregation(nn.Module):
             if cmi is not None:
                 inp = cmi(ctx2d, inp)
             inp, pre, post = getattr(self, f"hourglass{i}")(
-                inp, pre1, post if i > 1 else None, cost0
+                inp, pre1, post if i > 1 else None, cost0, kernels=kernels
             )
             if i == 1:
                 pre1 = pre
 
         head = getattr(self, f"classif{self.num_hourglass}")
-        if fused:
+        if fused or kernels:
             cost = fused_conv3d_pair(
                 inp, *self._fold(head.conv1), head.conv2.weight,
                 torch.ones(1, device=inp.device), head.conv2.bias, relu2=False,
@@ -154,6 +180,22 @@ class ECMAggregation(nn.Module):
         else:
             cost = head(inp)
         return [cost.squeeze(-1)]
+
+    def _dres_kernels(self, volume: torch.Tensor, ctx2d: torch.Tensor) -> torch.Tensor:
+        """dres0 and dres1 conv by conv through ``conv3d_bn_s1`` (JAX
+        ``aggregation.py:300-342``): the context0 map ("add" fusion) in
+        dres0_2's epilogue, the dres1 residual in dres1_2's. Another fusion
+        applies context0 after dres0_2, as the module does."""
+        cm0 = self._context(0)
+        ctx_map = None
+        if cm0 is not None and self.context_fusion == "add":
+            ctx_map = cm0(ctx2d, return_map=True)[:, None]  # [B, 1, H, W, C]
+        x = conv3d_bn_s1(volume, *self._fold(self.dres0_1))
+        x = conv3d_bn_s1(x, *self._fold(self.dres0_2), ctx_map)
+        if cm0 is not None and ctx_map is None:
+            x = cm0(ctx2d, x)
+        y = conv3d_bn_s1(x, *self._fold(self.dres1_1))
+        return conv3d_bn_s1(y, *self._fold(self.dres1_2), x, relu=False)
 
     @staticmethod
     def _fold(m: ConvBN) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -1,11 +1,13 @@
-"""End-to-end ECM stereo model, eval forward (port of
+"""End-to-end ECM stereo models, eval forward (port of
 ``ecm_tpu/models/ecm.py``): left/right ``[B, H, W, 3]`` -> siamese features
--> cost volume ``[B, D/4, H/4, W/4, 2C]`` -> context-mapped stacked-hourglass
-aggregation -> cost map ``[B, D/4, H/4, W/4]`` -> x4 trilinear upsample and
-soft-argmin -> disparity ``[B, H, W]``.
+-> cost volume ``[B, D/4, H/4, W/4, 2C]`` -> 3D aggregation -> cost map
+``[B, D/4, H/4, W/4]`` -> x4 trilinear upsample and soft-argmin -> disparity
+``[B, H, W]``.
 
-H and W must be multiples of 16 (the /4 features meet two stride-2
-hourglass levels); ``max_disp`` a multiple of 4.
+``ECMStereo`` aggregates with context-mapped stacked hourglasses and needs H
+and W multiples of 16 (the /4 features meet two stride-2 hourglass levels);
+``ECMBasic`` with residual blocks and needs multiples of 4. ``max_disp`` is a
+multiple of 4.
 """
 
 from __future__ import annotations
@@ -13,9 +15,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ecm_torch.models.aggregation import ECMAggregation
+from ecm_torch.models.aggregation import LAYOUTS, ClassifHead, ECMAggregation
+from ecm_torch.models.context import ContextMapping
 from ecm_torch.models.features import FeatureExtraction
-from ecm_torch.models.layers import init_weights
+from ecm_torch.models.layers import ConvBN, init_weights
 from ecm_torch.ops.cost_volume import cost_volume
 from ecm_torch.ops.cuda_regression import fused_upsample_softargmin
 from ecm_torch.ops.softargmin import disparity_regression
@@ -60,13 +63,39 @@ def regress_disparity(cost4: torch.Tensor, max_disp: int, h: int, w: int, mode: 
     return disparity_regression(upsample_trilinear(cost4, (max_disp, h, w)), max_disp)
 
 
-class ECMStereo(nn.Module):
+class _StereoModel(nn.Module):
+    """What both models share: the checks of ``max_disp`` and
+    ``regress_mode``, and the forward, which regresses each cost map of
+    ``cost_maps`` to a disparity ``[B, H, W]``."""
+
+    def __init__(self, max_disp: int, cost_mode: str, use_pallas: bool, regress_mode: str):
+        super().__init__()
+        if max_disp % 4:
+            raise ValueError(f"max_disp must be a multiple of 4, got {max_disp}")
+        if regress_mode not in REGRESS_MODES:
+            raise ValueError(f"unknown regress_mode {regress_mode!r}")
+        self.max_disp = max_disp
+        self.cost_mode = cost_mode
+        self.use_pallas = use_pallas
+        self.regress_mode = regress_mode
+
+    def forward(self, left: torch.Tensor, right: torch.Tensor) -> list[torch.Tensor]:
+        _, h, w, _ = left.shape
+        return [
+            regress_disparity(c4, self.max_disp, h, w, self.regress_mode)
+            for c4 in self.cost_maps(left, right)
+        ]
+
+
+class ECMStereo(_StereoModel):
     """Flagship stacked-hourglass ECM model (eval forward).
 
     ``use_pallas`` keeps its JAX name: in the port it selects the CUDA cost-
-    volume kernel. ``agg_fused`` routes the stride-1 conv pairs through the
-    fused CUDA kernel ("auto": on CUDA). ``agg_layout`` "auto" resolves to
-    "standard"; "grouped" is not ported."""
+    volume kernel. ``agg_layout`` keeps the JAX names of the aggregation's
+    eval dispatch, on NDHWC volumes in both: "standard" runs cuDNN or, with
+    ``agg_fused`` ("auto": on CUDA), the fused pair kernel; "grouped" runs
+    the layer kernels (``ECMAggregation``); "auto" resolves per forward
+    (:meth:`resolve_layout`)."""
 
     def __init__(
         self,
@@ -80,24 +109,28 @@ class ECMStereo(nn.Module):
         regress_mode: str = "auto",
         dtype: torch.dtype = torch.float32,
     ):
-        super().__init__()
-        if max_disp % 4:
-            raise ValueError(f"max_disp must be a multiple of 4, got {max_disp}")
-        if regress_mode not in REGRESS_MODES:
-            raise ValueError(f"unknown regress_mode {regress_mode!r}")
-        self.max_disp = max_disp
-        self.cost_mode = cost_mode
-        self.use_pallas = use_pallas
-        self.regress_mode = regress_mode
+        super().__init__(max_disp, cost_mode, use_pallas, regress_mode)
+        if agg_layout not in (*LAYOUTS, "auto"):
+            raise ValueError(f"agg_layout must be auto|standard|grouped, got {agg_layout!r}")
+        if agg_layout == "grouped" and (max_disp // 4) % 16:
+            raise ValueError(f"agg_layout='grouped' needs max_disp/4 % 16 == 0, got {max_disp // 4}")
+        self.agg_layout = agg_layout
         c = feature_channels
         self.feature = FeatureExtraction(c, dtype=dtype)
         self.aggregation = ECMAggregation(
             channels=c,
             in_channels=2 * c if cost_mode == "concat" else 1,
             context_fusion=context_fusion,
-            layout="standard" if agg_layout == "auto" else agg_layout,
             fused=agg_fused,
         )
+
+    def resolve_layout(self, device: torch.device) -> str:
+        """``agg_layout`` for a forward on ``device``, resolved as
+        ``ecm_tpu/models/ecm.py:133-145`` resolves it on a TPU: "auto" is
+        "grouped" on CUDA when max_disp/4 % 16 == 0, else "standard"."""
+        if self.agg_layout != "auto":
+            return self.agg_layout
+        return "grouped" if device.type == "cuda" and (self.max_disp // 4) % 16 == 0 else "standard"
 
     def cost_maps(self, left: torch.Tensor, right: torch.Tensor) -> list[torch.Tensor]:
         """The quarter-resolution cost maps ``[B, D/4, H/4, W/4]`` that the
@@ -110,14 +143,64 @@ class ECMStereo(nn.Module):
         fl = self.feature(left)
         fr = self.feature(right)
         vol = cost_volume(fl, fr, self.max_disp // 4, mode=self.cost_mode, use_pallas=self.use_pallas)
-        return self.aggregation(vol, fl)
+        return self.aggregation(vol, fl, self.resolve_layout(vol.device))
 
-    def forward(self, left: torch.Tensor, right: torch.Tensor) -> list[torch.Tensor]:
+
+class ResBlock3d(nn.Module):
+    """``ECMBasic``'s residual block: convbn-ReLU, convbn, plus the identity."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.c1 = ConvBN(c, c, 3, ndim=3)
+        self.c2 = ConvBN(c, c, 3, relu=False, ndim=3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.c2(self.c1(x))
+
+
+class ECMBasic(_StereoModel):
+    """Basic (non-stacked) variant (eval forward; port of ``ecm_tpu``'s
+    ``ECMBasic``): dres0 (two convbn-ReLU), context0, four residual blocks
+    ``dres1..4``, one classifier. Its 3D convs run on cuDNN, as they run on
+    XLA in JAX; ``use_pallas`` and ``regress_mode`` act as in ``ECMStereo``."""
+
+    def __init__(
+        self,
+        max_disp: int = 192,
+        feature_channels: int = 32,
+        cost_mode: str = "concat",
+        context_fusion: str = "add",
+        use_pallas: bool = False,
+        regress_mode: str = "auto",
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__(max_disp, cost_mode, use_pallas, regress_mode)
+        c = feature_channels
+        self.feature = FeatureExtraction(c, dtype=dtype)
+        self.dres0_1 = ConvBN(2 * c if cost_mode == "concat" else 1, c, 3, ndim=3)
+        self.dres0_2 = ConvBN(c, c, 3, ndim=3)
+        if context_fusion != "none":
+            self.context0 = ContextMapping(c, c, fusion=context_fusion)
+        for i in range(1, 5):
+            self.add_module(f"dres{i}", ResBlock3d(c))
+        self.classif = ClassifHead(c)
+
+    def cost_maps(self, left: torch.Tensor, right: torch.Tensor) -> list[torch.Tensor]:
+        """The quarter-resolution cost map ``[B, D/4, H/4, W/4]``, in a list."""
+        if self.training:
+            raise NotImplementedError("the training forward is not ported yet (ROADMAP queue 1)")
         _, h, w, _ = left.shape
-        return [
-            regress_disparity(c4, self.max_disp, h, w, self.regress_mode)
-            for c4 in self.cost_maps(left, right)
-        ]
+        if h % 4 or w % 4:
+            raise ValueError(f"ECMBasic needs H, W multiples of 4, got {h}x{w}")
+        fl = self.feature(left)
+        fr = self.feature(right)
+        x = cost_volume(fl, fr, self.max_disp // 4, mode=self.cost_mode, use_pallas=self.use_pallas)
+        x = self.dres0_2(self.dres0_1(x))
+        if hasattr(self, "context0"):
+            x = self.context0(fl, x)
+        for i in range(1, 5):
+            x = getattr(self, f"dres{i}")(x)
+        return [self.classif(x).squeeze(-1)]
 
 
 def build_model(
@@ -133,7 +216,7 @@ def build_model(
     if name in ("stackhourglass", "ecm"):
         model = ECMStereo(**kwargs)
     elif name == "basic":
-        raise NotImplementedError("ECMBasic is not ported yet (ROADMAP: next slice)")
+        model = ECMBasic(**kwargs)
     else:
         raise ValueError(f"unknown model {name!r}; expected stackhourglass|ecm|basic")
     init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))

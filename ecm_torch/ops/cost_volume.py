@@ -30,16 +30,12 @@ def cost_volume(
     max_disp: int,
     mode: str = "concat",
     use_pallas: bool = False,
-    grouped: bool = False,
 ) -> torch.Tensor:
-    """Build the cost volume from ``[B, H, W, C]`` features (1/4 resolution).
+    """Build the NDHWC cost volume from ``[B, H, W, C]`` features (1/4
+    resolution), for every aggregation layout (the JAX package's grouped
+    builders emit the same volume disparity-folded).
 
     ``use_pallas=True`` with ``mode="concat"`` runs the CUDA kernel."""
-    if grouped:
-        raise NotImplementedError(
-            "the disparity-folded (grouped) layout is not ported: ROADMAP "
-            "queue 2, cost_volume_concat_grouped_pallas"
-        )
     if mode not in ("concat", "correlation"):
         raise ValueError(f"unknown cost-volume mode: {mode!r}")
     if use_pallas:

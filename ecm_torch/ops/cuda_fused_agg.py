@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ecm_torch.kernels.build import check, library
+from ecm_torch.ops.cuda_gband import pack_taps
 
 # one block per output tile; the stage-1 intermediate over the tile and its
 # one-voxel halo lives in shared memory, at most this many bytes
@@ -57,14 +58,6 @@ def _kernel():
     fn.argtypes = [i] + [vp] * 9 + [i] * 13 + [vp]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _pack(k: torch.Tensor, dtype: torch.dtype, pad_to: int) -> torch.Tensor:
-    """[O, I, 3, 3, 3] -> f32 [27, I, O padded to pad_to], rounded to dtype
-    first (the convs multiply in the input type's precision)."""
-    o, i = k.shape[:2]
-    kp = k.to(dtype).float().permute(2, 3, 4, 1, 0).reshape(27, i, o)
-    return F.pad(kp, (0, -(-o // pad_to) * pad_to - o)).contiguous()
 
 
 def _tile(d: int, h: int, w: int, cm: int, itemsize: int) -> tuple[int, int, int]:
@@ -113,8 +106,8 @@ def fused_conv3d_pair(
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError("x/ctx must be contiguous and 16-byte aligned")
     dev = x.device
-    k1p = _pack(k1, x.dtype, 32).to(dev)
-    k2p = _pack(k2, x.dtype, 1 if cout == 1 else 32).to(dev)
+    k1p = pack_taps(k1, x.dtype, 32).to(dev)
+    k2p = pack_taps(k2, x.dtype, 1 if cout == 1 else 32).to(dev)
     s1, b1, s2, b2 = (v.to(dev, torch.float32).contiguous() for v in (scale1, bias1, scale2, bias2))
     td, th, tw = _tile(d, h, w, cm, x.element_size())
     out = torch.empty(b, d, h, w, cout, dtype=x.dtype, device=dev)

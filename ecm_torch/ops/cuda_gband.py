@@ -1,0 +1,152 @@
+"""3x3x3 convolutions with zero padding 1, stride 1 or 2, a folded-BN affine,
+optional ReLU and an optional post-activation add: the plain versions and the
+wrappers of their CUDA kernel (``ecm_torch/csrc/conv3d_bn.cu``; replaces
+``ecm_tpu/ops/pallas_gband.py::gband_conv_bn_s1`` and ``::gband_down_conv_bn``,
+whose NDHWC functions these are).
+
+    out = relu?(conv(x, weight) * scale + bias) [+ add]
+
+x ``[B, D, H, W, Cin]``; weight ``[Cout, Cin, 3, 3, 3]`` (torch layout), cast
+to x's dtype; scale/bias ``[Cout]`` (folded BN), applied in f32; ``add``
+(stride 1 only, in x's dtype) is a residual ``[B, D, H, W, Cout]`` or a
+context map ``[B, 1, H, W, Cout]`` broadcast over D, added in f32. Returns
+``[B, Do, Ho, Wo, Cout]`` in x's dtype, ``Do = (D - 1) // stride + 1``.
+
+On the card, bf16 with Cin a multiple of 8 runs on the tensor cores (an
+implicit GEMM, f32 accumulation); f32, or another Cin, on the CUDA cores.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from ecm_torch.kernels.build import check, library
+
+_CO = 16  # output channels per thread of the CUDA-core kernel: weights are padded to it
+_KC = 32  # input channels per stage of the tensor-core kernel: weights are padded to it
+
+
+def pack_taps(k: torch.Tensor, dtype: torch.dtype, pad_to: int) -> torch.Tensor:
+    """Conv weight ``[O, I, 3, 3, 3]`` -> f32 ``[27, I, O padded to pad_to]``
+    (tap = (kd * 3 + kh) * 3 + kw), rounded to ``dtype`` first: the kernels
+    multiply in the input type's precision and accumulate in f32."""
+    o, i = k.shape[:2]
+    kp = k.to(dtype).float().permute(2, 3, 4, 1, 0).reshape(27, i, o)
+    return F.pad(kp, (0, -(-o // pad_to) * pad_to - o)).contiguous()
+
+
+def conv3d_bn_torch(x, weight, scale, bias, add=None, *, stride=1, relu=True):
+    """Plain PyTorch version (CPU path and the kernel's reference)."""
+    dt = x.dtype
+    y = F.conv3d(x.movedim(-1, 1), weight.to(dt), stride=stride, padding=1).movedim(1, -1)
+    y = y.float() * scale.float() + bias.float()
+    if relu:
+        y = y.clamp_min(0.0)
+    if add is not None:
+        y = y + add.float()
+    return y.to(dt)
+
+
+def _check(x, weight, scale, bias, add, stride):
+    if x.ndim != 5:
+        raise ValueError(f"x must be [B, D, H, W, Cin], got {tuple(x.shape)}")
+    b, d, h, w, cin = x.shape
+    cout = weight.shape[0]
+    if tuple(weight.shape) != (cout, cin, 3, 3, 3):
+        raise ValueError(f"weight {tuple(weight.shape)} is not [Cout, {cin}, 3, 3, 3]")
+    if scale.numel() != cout or bias.numel() != cout:
+        raise ValueError(f"scale/bias of {scale.numel()}/{bias.numel()} for {cout} channels")
+    if add is not None:
+        if stride != 1:
+            raise ValueError("add is taken only by the stride-1 conv")
+        if add.ndim != 5 or add.shape[1] not in (1, d) or tuple(add.shape) != (b, add.shape[1], h, w, cout):
+            raise ValueError(f"add {tuple(add.shape)} is not [B, D or 1, H, W, Cout] for {tuple(x.shape)}")
+        if add.dtype != x.dtype or add.device != x.device:
+            raise ValueError(f"add is {add.dtype} on {add.device}, x is {x.dtype} on {x.device}")
+
+
+@functools.cache
+def _kernel(tensor_cores: bool):
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    if tensor_cores:
+        fn = library("conv3d_bn").ecm_conv3d_bn_mma
+        fn.argtypes = [i] + [vp] * 6 + [i] * 8 + [vp]
+    else:
+        fn = library("conv3d_bn").ecm_conv3d_bn
+        fn.argtypes = [i, i] + [vp] * 6 + [i] * 8 + [vp]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def pack_taps_mma(weight: torch.Tensor) -> torch.Tensor:
+    """Conv weight ``[O, I, 3, 3, 3]`` -> bf16 ``[27, I padded to 32, O
+    padded to 32 (O <= 32) or 64]``, zero in the pads: the tensor-core
+    kernel's B operand."""
+    o, i = weight.shape[:2]
+    nb = 32 if o <= 32 else 64
+    kp = weight.to(torch.bfloat16).permute(2, 3, 4, 1, 0).reshape(27, i, o)
+    return F.pad(kp, (0, -(-o // nb) * nb - o, 0, -(-i // _KC) * _KC - i)).contiguous()
+
+
+def _launch(x, weight, scale, bias, add, stride, relu, what):
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what} takes float32 or bfloat16, got {x.dtype}")
+    for t in (x, add):
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{what}: x/add must be contiguous and 16-byte aligned")
+    dev = x.device
+    b, d, h, w, cin = x.shape
+    cout = weight.shape[0]
+    tensor_cores = x.dtype == torch.bfloat16 and cin % 8 == 0
+    wp = (pack_taps_mma(weight) if tensor_cores else pack_taps(weight, x.dtype, _CO)).to(dev)
+    s, bb = (v.to(dev, torch.float32).contiguous() for v in (scale, bias))
+    out = torch.empty(
+        b, (d - 1) // stride + 1, (h - 1) // stride + 1, (w - 1) // stride + 1, cout,
+        dtype=x.dtype, device=dev,
+    )
+    args = (
+        x.data_ptr(), wp.data_ptr(), s.data_ptr(), bb.data_ptr(),
+        None if add is None else add.data_ptr(), out.data_ptr(),
+        b, d, h, w, cin, cout, 0 if add is None else add.shape[1], int(relu),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if tensor_cores:
+        status = _kernel(True)(stride, *args)
+    else:
+        status = _kernel(False)(1 if x.dtype == torch.bfloat16 else 0, stride, *args)
+    check(status, what)
+    return out
+
+
+def conv3d_bn_s1(x, weight, scale, bias, add=None, *, relu=True):
+    """Stride-1 conv + affine [+ ReLU] [+ add] through the CUDA kernel for
+    CUDA tensors; the plain version for CPU tensors. Counts its launches in
+    ``.launches``."""
+    _check(x, weight, scale, bias, add, 1)
+    if x.device.type == "cpu":
+        return conv3d_bn_torch(x, weight, scale, bias, add, stride=1, relu=relu)
+    out = _launch(x, weight, scale, bias, add, 1, relu, "conv3d_bn_s1")
+    conv3d_bn_s1.launches += 1
+    return out
+
+
+def conv3d_bn_down(x, weight, scale, bias, *, relu=True):
+    """Stride-2 conv + affine [+ ReLU] through the CUDA kernel for CUDA
+    tensors; the plain version for CPU tensors. Counts its launches in
+    ``.launches``."""
+    _check(x, weight, scale, bias, None, 2)
+    if x.device.type == "cpu":
+        return conv3d_bn_torch(x, weight, scale, bias, stride=2, relu=relu)
+    out = _launch(x, weight, scale, bias, None, 2, relu, "conv3d_bn_down")
+    conv3d_bn_down.launches += 1
+    return out
+
+
+conv3d_bn_s1.launches = 0
+conv3d_bn_down.launches = 0

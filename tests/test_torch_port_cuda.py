@@ -10,6 +10,8 @@ import torch
 
 from ecm_torch.ops.cuda_cost_volume import cost_volume_concat, cost_volume_concat_torch
 from ecm_torch.ops.cuda_fused_agg import fused_conv3d_pair, fused_conv3d_pair_torch
+from ecm_torch.ops.cuda_gband import conv3d_bn_down, conv3d_bn_s1, conv3d_bn_torch
+from ecm_torch.ops.cuda_gdeconv import deconv3d_bn, deconv3d_bn_torch
 from ecm_torch.ops.cuda_regression import (
     fused_upsample_softargmin,
     fused_upsample_softargmin_torch,
@@ -66,3 +68,60 @@ def test_regression_kernel(dev, dtype):
     torch.cuda.synchronize()
     ref = fused_upsample_softargmin_torch(c4, 48)
     assert (out - ref).abs().max() <= 1e-3
+
+
+def _rel(out, ref):
+    return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def _tol(dtype):
+    return 2e-2 if dtype == torch.bfloat16 else 1e-5
+
+
+@pytest.mark.parametrize("form", ["plain", "ctx", "residual", "odd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3d_bn_s1_kernel(dev, form, dtype):
+    g = torch.Generator().manual_seed(3)
+    cin, cout = {"plain": (16, 8), "ctx": (8, 8), "residual": (8, 24), "odd": (5, 3)}[form]
+    b, d, h, w = 2, 5, 6, 13
+    x = torch.randn(b, d, h, w, cin, generator=g).to(dev, dtype)
+    k = (torch.randn(cout, cin, 3, 3, 3, generator=g) * 0.2).to(dev)
+    s, bb = (torch.rand(cout, generator=g) + 0.5).to(dev), torch.randn(cout, generator=g).to(dev)
+    add = {"ctx": (b, 1, h, w, cout), "residual": (b, d, h, w, cout)}.get(form)
+    add = None if add is None else torch.randn(*add, generator=g).to(dev, dtype)
+    relu = form != "residual"
+    n = conv3d_bn_s1.launches
+    out = conv3d_bn_s1(x, k, s, bb, add, relu=relu)
+    torch.cuda.synchronize()
+    assert conv3d_bn_s1.launches == n + 1
+    assert _rel(out, conv3d_bn_torch(x, k, s, bb, add, relu=relu)) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("cin,cout", [(8, 16), (5, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3d_bn_down_kernel(dev, cin, cout, dtype):
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 7, 6, 11, cin, generator=g).to(dev, dtype)
+    k = (torch.randn(cout, cin, 3, 3, 3, generator=g) * 0.2).to(dev)
+    s, bb = (torch.rand(cout, generator=g) + 0.5).to(dev), torch.randn(cout, generator=g).to(dev)
+    n = conv3d_bn_down.launches
+    out = conv3d_bn_down(x, k, s, bb)
+    torch.cuda.synchronize()
+    assert conv3d_bn_down.launches == n + 1
+    assert out.shape == (2, 4, 3, 6, cout)
+    assert _rel(out, conv3d_bn_torch(x, k, s, bb, stride=2)) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("cin,cout,with_add", [(16, 8, True), (16, 8, False), (5, 3, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deconv3d_bn_kernel(dev, cin, cout, with_add, dtype):
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 3, 5, 7, cin, generator=g).to(dev, dtype)
+    k = (torch.randn(cin, cout, 3, 3, 3, generator=g) * 0.2).to(dev)
+    s, bb = (torch.rand(cout, generator=g) + 0.5).to(dev), torch.randn(cout, generator=g).to(dev)
+    add = torch.randn(2, 6, 10, 14, cout, generator=g).to(dev, dtype) if with_add else None
+    n = deconv3d_bn.launches
+    out = deconv3d_bn(x, k, s, bb, add)
+    torch.cuda.synchronize()
+    assert deconv3d_bn.launches == n + 1
+    assert _rel(out, deconv3d_bn_torch(x, k, s, bb, add)) <= _tol(dtype)

@@ -47,17 +47,19 @@ def test_build_model_without_gpu_raises(monkeypatch):
 
 
 def test_unported_paths_raise():
-    from ecm_torch.configs import CONFIGS
+    """What is still to port raises: the training forward (both models) and
+    the correlation volume's kernel (``use_pallas=True``)."""
     from ecm_torch.models import build_model
 
-    with pytest.raises(NotImplementedError, match="grouped"):
-        CONFIGS["overfit_gate_grouped"].model.build(device="cpu")
-    with pytest.raises(NotImplementedError, match="ECMBasic"):
-        build_model("basic", device="cpu")
-    m = build_model(device="cpu", max_disp=16, feature_channels=8)
-    m.train()
-    with pytest.raises(NotImplementedError, match="training"):
-        m(torch.zeros(1, 32, 48, 3), torch.zeros(1, 32, 48, 3))
+    images = (torch.zeros(1, 32, 48, 3), torch.zeros(1, 32, 48, 3))
+    for name in ("stackhourglass", "basic"):
+        m = build_model(name, device="cpu", max_disp=16, feature_channels=8)
+        m.train()
+        with pytest.raises(NotImplementedError, match="training"):
+            m(*images)
+    m = build_model(device="cpu", max_disp=16, feature_channels=8, cost_mode="correlation", use_pallas=True)
+    with pytest.raises(NotImplementedError, match="correlation"), torch.inference_mode():
+        m(*images)
 
 
 def test_kernel_build_is_lazy():

@@ -40,8 +40,6 @@ def test_cost_volume_dispatch():
     assert torch.count_nonzero(corr[0, 2, :, :2]) == 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cv.cost_volume(fl, fr, 4, mode="correlation", use_pallas=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cv.cost_volume(fl, fr, 4, grouped=True)
 
 
 @pytest.fixture(scope="module")
