@@ -4,27 +4,41 @@
 
 1. Builds the port's CUDA kernels (one nvcc per source, in parallel) and
    holds each against its plain PyTorch version at the main paths' shapes
-   (B=1, 384x1248, max-disp 192, bf16) in every form the paths use, timing
-   the kernel, the plain version and, where one exists, one cuDNN call of
-   the same function with CUDA events (median of 10 runs).
+   in every form the paths use (B=1, 384x1248, max-disp 192, bf16 for the
+   serving kernels; B=4, 256x512, max-disp 192 for ``gband_conv_s1``,
+   forward and input gradient), timing the kernel, the plain version and,
+   where one exists, one cuDNN call of the same function with CUDA events
+   (median of 10 runs).
 2. Serves ``CONFIGS["kitti_infer"].model.build(...)`` at full width (seeded
-   random weights) along three paths, each with every launch count set to 0
+   random weights) along four paths, each with every launch count set to 0
    just before it and read just after:
    - slice 1, the standard-layout kernel path (``SLICE_OVERRIDES``): cost
      volume, fused pair and regression kernels 1, 3 and 1 times a forward;
    - slice 2, the grouped layer-kernel path (``SLICE2_OVERRIDES``): cost
      volume 1, ``conv3d_bn_s1`` 4, ``conv3d_bn_down`` 3, ``deconv3d_bn`` 3,
      fused pair 1 and regression 1 times a forward;
-   - ``ECMBasic`` with the cost-volume and regression kernels, 1 and 1.
+   - ``ECMBasic`` with the cost-volume and regression kernels, 1 and 1;
+   - ``ECMBasic`` on the correlation volume (``cost_mode="correlation"``),
+     correlation kernel 1 and regression 1 a forward.
    The ECMStereo paths serve three pairs at batch 1 and one batch of 8,
-   ECMBasic two pairs at batch 1. Each checks the disparity (finite, in
-   [0, 191]), the launch counts, and the cost map against the plain path
-   (cuDNN convolutions, no kernels) on the same weights, and reports the
-   median ms per forward.
+   the ECMBasic paths two pairs at batch 1. Each checks the disparity
+   (finite, in [0, 191]), the launch counts, and the cost map against the
+   plain path (cuDNN convolutions, no kernels) on the same weights, and
+   reports the median ms per forward. The correlation path also takes
+   apart its cost map's difference from the plain path on eight pairs
+   (``correlation_witness``).
 3. Profiles a steady window of batch-1 forwards of each ECMStereo path with
    ``torch.profiler``: device time per kernel, the port's kernels against
    the rest, and the device's idle share of the window.
-4. Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+4. Trains ``CONFIGS["sceneflow_single"]`` (slice 3, ``TRAIN_SLICE``): 4
+   pairs at 256x512, max-disp 192, bf16, the grouped dispatch, through
+   ``train_loop`` on one fixed synthetic batch, counts 0 just before and
+   read just after: ``gband_conv_s1`` 7 forward and 7 input-gradient
+   launches a step and no eval kernel; the loss finite and falling. Then
+   one step of the grouped path against one of the standard (cuDNN) path on
+   the same weights and batch, ms per step (median of 10), peak memory and
+   a profiled step.
+5. Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits nonzero without the last line.
@@ -34,7 +48,9 @@ It needs a CUDA device and the rest of the repository beside it.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -45,34 +61,65 @@ import torch
 import torch.nn.functional as F
 
 from ecm_torch.configs import CONFIGS
-from ecm_torch.configs.base import SLICE2_OVERRIDES, SLICE_OVERRIDES
+from ecm_torch.configs.base import SLICE2_OVERRIDES, SLICE_OVERRIDES, TRAIN_SLICE
+from ecm_torch.data import make_batch
 from ecm_torch.kernels import build
 from ecm_torch.ops import cuda_cost_volume as cvk
 from ecm_torch.ops import cuda_fused_agg as pairk
 from ecm_torch.ops import cuda_gband as gbk
 from ecm_torch.ops import cuda_gdeconv as gdk
 from ecm_torch.ops import cuda_regression as regk
+from ecm_torch.train.loop import to_device, train_loop
+from ecm_torch.train.loss import stereo_loss
+from ecm_torch.train.state import create_train_state, make_optimizer
+from ecm_torch.train.steps import make_train_step
 
 B, H, W, MAX_DISP, C = 1, 384, 1248, 192, 32
 D4, H4, W4 = MAX_DISP // 4, H // 4, W // 4
+TB, (TH, TW) = CONFIGS[TRAIN_SLICE].data.global_batch, CONFIGS[TRAIN_SLICE].data.crop
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 on the CUDA cores
 SFU_PER_CLOCK_PER_SM, SMS = 16, 132
 RUNS = 10
 PAIR_REL_TOL = 2e-2  # max|diff| / max|ref| in bf16 (tests/test_fused_agg.py:81); also the conv kernels
 REGRESSION_TOL_PX = 1e-3
 COST4_REL_TOL = 3e-2  # bf16 network, rounded at other places (9.9e-3 measured on an H100)
+CORR_REL_TOL = 1e-2  # f32 sums of the same products in another order, one bf16 rounding
+# the correlation path's cost map against the plain path's, on each pair of
+# CORR_WITNESS_SEEDS; what it is made of is checked exactly by
+# correlation_witness (3-9 volume entries of 1.44 M differ by one bf16
+# spacing, which the plain network amplifies 4.7-6.8x). Read on an H100 over
+# these eight pairs: 2.372e-2 to 3.334e-2; held at 1.5x the largest.
+COST4_CORR_REL_TOL = 5e-2
+CORR_WITNESS_SEEDS = (1, 2, 3, 4, 5, 6, 7, 8)
+TRAIN_LOSS_REL_TOL = 2e-2  # one grouped step against one cuDNN step, bf16
+TRAIN_GRAD_COSINE = 0.99  # the seven kernel-conv weight gradients, same comparison
+TRAIN_STEPS = 20  # train_loop steps on one fixed batch; the loss must fall
 PLAIN = dict(agg_layout="standard", agg_fused="off", use_pallas=False, regress_mode="fullres")
 PLAIN_BASIC = dict(use_pallas=False, regress_mode="fullres")
 OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+# the launch counts: name -> (wrapper, attribute)
 COUNTERS = {
-    "cost_volume_concat": cvk.cost_volume_concat,
-    "conv3d_bn_s1": gbk.conv3d_bn_s1,
-    "conv3d_bn_down": gbk.conv3d_bn_down,
-    "deconv3d_bn": gdk.deconv3d_bn,
-    "fused_conv3d_pair": pairk.fused_conv3d_pair,
-    "fused_upsample_softargmin": regk.fused_upsample_softargmin,
+    "cost_volume_concat": (cvk.cost_volume_concat, "launches"),
+    "cost_volume_correlation": (cvk.cost_volume_correlation, "launches"),
+    "conv3d_bn_s1": (gbk.conv3d_bn_s1, "launches"),
+    "conv3d_bn_down": (gbk.conv3d_bn_down, "launches"),
+    "deconv3d_bn": (gdk.deconv3d_bn, "launches"),
+    "fused_conv3d_pair": (pairk.fused_conv3d_pair, "launches"),
+    "fused_upsample_softargmin": (regk.fused_upsample_softargmin, "launches"),
+    "gband_conv_s1": (gbk.gband_conv_s1, "launches"),
+    "gband_conv_s1_input_grad": (gbk.gband_conv_s1, "backward_launches"),
 }
+
+
+def reset_counts() -> None:
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in COUNTERS.items()}
 
 
 def log(*a) -> None:
@@ -105,6 +152,33 @@ def times_ms(fn, runs: int = RUNS) -> list[float]:
     return times
 
 
+def device_events(prof) -> list:
+    """The kernels and copies of a torch.profiler run (not the annotations
+    that the profiler also puts on the device timeline)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms(fn, symbol: str, runs: int = RUNS) -> float:
+    """Mean device time of the kernels named ``symbol`` per call of ``fn``
+    (torch.profiler): for a kernel so short that the CUDA-event time of a
+    call is the host's launch time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in device_events(prof) if symbol in e.name]
+    if len(events) != runs:
+        raise AssertionError(f"profiled {len(events)} {symbol} kernels for {runs} calls")
+    return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / runs
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -127,6 +201,7 @@ def check_cost_volume(gen) -> dict:
         name="cost_volume_concat", route="cuda", source="ecm_torch/csrc/cost_volume.cu",
         replaces="ecm_tpu/ops/pallas_cost_volume.py:132", max_abs_err=0.0,
         ms=time_ms(lambda: cvk.cost_volume_concat(fl, fr, D4)),
+        device_ms=device_ms(lambda: cvk.cost_volume_concat(fl, fr, D4), "concat_kernel"),
         plain_ms=time_ms(lambda: cvk.cost_volume_concat_torch(fl, fr, D4)),
         bound_ms=bound_ms, bound_by=by, library_ms=None,
     )
@@ -313,25 +388,170 @@ def check_deconv3d_bn(gen) -> dict:
     )
 
 
+def correlation_rounding(vol: torch.Tensor, fl: torch.Tensor, fr: torch.Tensor) -> float:
+    """How far a bf16 correlation volume lies from the f64 mean of the same
+    products, as a share of what an f32 sum and one bf16 rounding may give:
+    half a bf16 spacing plus the f32 sum's error bound ``gamma_(C-1) *
+    mean |p|`` (u = 2^-24, any order of the sum). At most 1 for a volume
+    whose only errors are those roundings."""
+    _, _, w, c = fl.shape
+    ref = torch.zeros(vol.shape[:4], dtype=torch.float64, device=fl.device)
+    mag = torch.zeros_like(ref)
+    for d in range(min(vol.shape[1], w)):
+        p = fl[:, :, d:].double() * fr[:, :, : w - d].double()
+        ref[:, d, :, d:], mag[:, d, :, d:] = p.mean(-1), p.abs().mean(-1)
+    v = vol[..., 0].double()
+    _, e = torch.frexp(torch.maximum(v.abs(), ref.abs()))
+    gamma = (c - 1) * 2.0**-24 / (1 - (c - 1) * 2.0**-24)
+    # + one f32 rounding of the scaling by 1/C (exact when C is a power of 2)
+    allowed = 0.5 * torch.ldexp(torch.ones_like(ref), e - 8) + gamma * mag + 2.0**-24 * ref.abs()
+    return ((v - ref).abs() / allowed).max().item()
+
+
+def bf16_spacings(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``|a - b|`` of two bf16 tensors in bf16 spacings at the larger one."""
+    a, b = a.double(), b.double()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return (a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)
+
+
+def check_correlation(gen) -> dict:
+    """The correlation volume at the kitti_infer shape (its serving path):
+    against its plain version, and each entry within one bf16 rounding and
+    the f32 sum's error of the f64 correlation (``correlation_rounding``)."""
+    fl = _rnd(gen, B, H4, W4, C).bfloat16()
+    fr = _rnd(gen, B, H4, W4, C).bfloat16()
+    out = cvk.cost_volume_correlation(fl, fr, D4)
+    torch.cuda.synchronize()
+    ref = cvk.cost_volume_correlation_torch(fl, fr, D4)
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = err / ref.float().abs().max().item()
+    if not rel <= CORR_REL_TOL:
+        raise AssertionError(f"cost_volume_correlation rel err {rel} > {CORR_REL_TOL}")
+    rounding = correlation_rounding(out, fl, fr)
+    if not rounding <= 1.0:
+        raise AssertionError(f"cost_volume_correlation: {rounding} x one rounding off the f64 correlation")
+    # multiply-adds this input needs: columns w >= d only
+    fmas = B * H4 * C * sum(max(W4 - d, 0) for d in range(D4))
+    bound_ms, by = bound(2 * fmas, PEAK_F32_FLOPS, nbytes(fl, fr, out))
+    return dict(
+        name="cost_volume_correlation", route="cuda", source="ecm_torch/csrc/cost_volume.cu",
+        replaces="ecm_tpu/ops/pallas_cost_volume.py:150", max_abs_err=err, rel_err=rel,
+        roundings=rounding,
+        ms=time_ms(lambda: cvk.cost_volume_correlation(fl, fr, D4)),
+        device_ms=device_ms(lambda: cvk.cost_volume_correlation(fl, fr, D4), "correlation_kernel"),
+        plain_ms=time_ms(lambda: cvk.cost_volume_correlation_torch(fl, fr, D4)),
+        bound_ms=bound_ms, bound_by=by, library_ms=None,
+    )
+
+
+def check_gband_conv_s1(gen) -> dict:
+    """``gband_conv_s1`` at the train shape (B=4, 48x64x128): the forward
+    forms 64->32 (dres0_1) and 32->32 (the other six sites) and the input
+    gradients 32->64 and 32->32, each with its cuDNN yardstick
+    (``F.conv3d``, ``torch.nn.grad.conv3d_input``). The weight gradient,
+    which the port leaves to cuDNN as JAX leaves it to XLA, is timed beside
+    each forward form (``wgrad_ms``)."""
+    b, d, h, w = TB, MAX_DISP // 4, TH // 4, TW // 4
+    vox = b * d * h * w
+    forms, wgrad = [], {}
+    for cin in (2 * C, C):
+        x = _rnd(gen, b, d, h, w, cin).bfloat16()
+        wt = _rnd(gen, C, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
+        dy = _rnd(gen, b, d, h, w, C).bfloat16()
+        xcf, wb, dycf = x.movedim(-1, 1), wt.bfloat16(), dy.movedim(-1, 1)
+
+        def fwd(x=x, wt=wt):
+            with torch.no_grad():
+                return gbk.gband_conv_s1(x, wt)
+
+        forms.append((
+            f"forward {cin}->{C}", fwd,
+            lambda x=x, wt=wt: gbk.gband_conv_s1_torch(x, wt),
+            lambda xcf=xcf, wb=wb: F.conv3d(xcf, wb, padding=1),
+            2 * 27 * vox * cin * C, nbytes(x) + 2 * wt.numel(),
+        ))
+        forms.append((
+            f"input grad {C}->{cin}",
+            lambda dy=dy, wt=wt: gbk.gband_conv_s1_input_grad(dy, wt.bfloat16()),
+            lambda dy=dy, wt=wt: gbk.gband_conv_s1_torch(dy, wt.flip(2, 3, 4).transpose(0, 1)),
+            lambda xcf=xcf, wb=wb, dycf=dycf: torch.nn.grad.conv3d_input(xcf.shape, wb, dycf, padding=1),
+            2 * 27 * vox * cin * C, nbytes(dy) + 2 * wt.numel(),
+        ))
+        wgrad[f"{cin}->{C}"] = time_ms(lambda xcf=xcf, wb=wb, dycf=dycf: torch.ops.aten.convolution_backward(
+            dycf, xcf, wb, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1, [False, True, False]))
+    result = check_forms(
+        "gband_conv_s1", "ecm_torch/csrc/conv3d_bn.cu", "ecm_tpu/ops/pallas_gband.py:963", forms
+    )
+    result["cudnn_wgrad_ms"] = wgrad
+    return result
+
+
 def pairs(batch: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     left = torch.rand(batch, H, W, 3, generator=gen, device="cuda")
     return left, torch.rand(batch, H, W, 3, generator=gen, device="cuda")
 
 
-def serve(path: str, name: str, overrides: dict, per_forward: dict, batch8: bool) -> dict:
+def correlation_witness(model, plain) -> dict:
+    """Where the correlation path's cost map leaves the plain path's, on
+    each pair of ``CORR_WITNESS_SEEDS`` at batch 1:
+
+    1. the kernel's volume and the plain builder's are each within one bf16
+       rounding and the f32 sum's error of the f64 correlation
+       (``correlation_rounding`` <= 1); how many entries differ, and by how
+       many bf16 spacings at most;
+    2. the plain network fed the kernel's volume gives the kernel path's
+       cost map bit for bit, so all of the cost-map difference is the plain
+       network's response to those roundings;
+    3. that response: the cost map's max|diff|/max|ref| against the plain
+       path, held to ``COST4_CORR_REL_TOL``, over the volume's.
+    """
+    rows = []
+    for seed in CORR_WITNESS_SEEDS:
+        left, right = pairs(1, seed)
+        fl, fr = plain.feature(left), plain.feature(right)
+        vol_k = cvk.cost_volume_correlation(fl, fr, D4)
+        vol_p = cvk.cost_volume_correlation_torch(fl, fr, D4)
+        rounding = [correlation_rounding(v, fl, fr) for v in (vol_k, vol_p)]
+        if not max(rounding) <= 1.0:
+            raise AssertionError(f"basic_correlation seed {seed}: volume {rounding} x one rounding off f64")
+        (cost_k,) = model.cost_maps(left, right)
+        (cost_kp,) = plain.aggregate(vol_k, fl)
+        if not torch.equal(cost_k, cost_kp):
+            raise AssertionError(f"basic_correlation seed {seed}: the plain network on the kernel's volume "
+                                 f"differs from the kernel path by {(cost_k - cost_kp).abs().max().item()}")
+        (cost_p,) = plain.cost_maps(left, right)
+        vol_rel = ((vol_k.float() - vol_p.float()).abs().max() / vol_p.float().abs().max()).item()
+        cost_rel = ((cost_k.float() - cost_p.float()).abs().max() / cost_p.float().abs().max()).item()
+        rows.append(dict(
+            seed=seed, roundings_kernel=rounding[0], roundings_plain=rounding[1],
+            entries=vol_k.numel(), entries_differ=int((vol_k != vol_p).sum().item()),
+            max_spacings=bf16_spacings(vol_k, vol_p).max().item(), volume_rel=vol_rel,
+            cost4_rel=cost_rel, amplification=cost_rel / vol_rel if vol_rel else None,
+        ))
+        log(f"  basic_correlation witness: {json.dumps(rows[-1])}")
+    worst = max(r["cost4_rel"] for r in rows)
+    if not worst <= COST4_CORR_REL_TOL:
+        raise AssertionError(f"basic_correlation: cost4 rel err {worst} > {COST4_CORR_REL_TOL}")
+    return dict(seeds=rows, cost4_rel_max=worst)
+
+
+def serve(path: str, name: str, overrides: dict, per_forward: dict, batch8: bool,
+          cost_tol: float = COST4_REL_TOL, **fields) -> dict:
     """Serve one path: every launch count set to 0 just before, read just
-    after; then the cost map against the plain path and the timings."""
-    cfg = dataclasses.replace(CONFIGS["kitti_infer"].model, name=name)
+    after; then the cost map against the plain path (max|diff|/max|ref| <=
+    ``cost_tol``) and the timings. ``fields`` replace fields of the preset
+    (both paths)."""
+    cfg = dataclasses.replace(CONFIGS["kitti_infer"].model, name=name, **fields)
     model = cfg.build(generator=torch.Generator().manual_seed(0), **overrides)
     requests = [pairs(1, s) for s in (1, 2, 3)[: 3 if batch8 else 2]] + ([pairs(8, 4)] if batch8 else [])
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
-        for f in COUNTERS.values():
-            f.launches = 0
+        reset_counts()
         disps = [model(left, right)[0] for left, right in requests]
         torch.cuda.synchronize()
-        launches = {k: f.launches for k, f in COUNTERS.items()}
+        launches = read_counts()
         forwards = len(requests)
         expected = {k: per_forward.get(k, 0) * forwards for k in COUNTERS}
         if launches != expected:
@@ -351,8 +571,8 @@ def serve(path: str, name: str, overrides: dict, per_forward: dict, batch8: bool
         cost_err = ((cost_k.float() - cost_p.float()).abs().max() / cost_p.float().abs().max()).item()
         log(f"  {path}: cost4 kernel path vs plain path: max|diff|/max|ref| {cost_err:.3e} "
             f"(max|ref| {cost_p.float().abs().max().item():.4g})")
-        if not cost_err <= COST4_REL_TOL:
-            raise AssertionError(f"{path}: cost4 rel err {cost_err} > {COST4_REL_TOL}")
+        if not cost_err <= cost_tol:
+            raise AssertionError(f"{path}: cost4 rel err {cost_err} > {cost_tol}")
         disp_diff = (model(left, right)[0] - plain(left, right)[0]).abs()
 
         b1 = iter([pairs(1, 100 + i) for i in range(RUNS + 1)])
@@ -365,6 +585,8 @@ def serve(path: str, name: str, overrides: dict, per_forward: dict, batch8: bool
             ms_per_forward_b1=statistics.median(runs_b1), runs_ms_b1=runs_b1,
             plain_ms_per_forward_b1=plain_ms_b1,
         )
+        if model.cost_mode == "correlation":
+            result["witness"] = correlation_witness(model, plain)
         if batch8:
             b8 = pairs(8, 200)
             runs_b8 = times_ms(lambda: model(*b8))
@@ -394,7 +616,6 @@ def profile_forward(path: str, overrides: dict, runs: int = 3) -> dict:
     time per kernel (ms per forward), the port's kernels against everything
     else (cuDNN, elementwise, copies), and the idle share of the window (1 -
     union of device intervals / host wall time, profiler overhead included)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     model = CONFIGS["kitti_infer"].model.build(generator=torch.Generator().manual_seed(0), **overrides)
@@ -408,7 +629,7 @@ def profile_forward(path: str, overrides: dict, runs: int = 3) -> dict:
                 model(left, right)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = device_events(prof)
     by_name, port = {}, {}
     for e in events:
         ms = (e.time_range.end - e.time_range.start) / 1e3
@@ -428,6 +649,161 @@ def profile_forward(path: str, overrides: dict, runs: int = 3) -> dict:
         idle_share=1 - busy_us / 1e3 / wall_ms if events else None,
         ms_per_forward_by_group={k: v / runs for k, v in sorted(port.items(), key=lambda kv: -kv[1])},
         top_kernels_ms_per_forward=[(k[:90], v / runs) for k, v in top],
+    )
+
+
+# the seven stride-1 convs of the full-resolution stack that the grouped
+# training dispatch sends through gband_conv_s1
+GBAND_SITES = (
+    "aggregation.dres0_1", "aggregation.dres0_2", "aggregation.dres1_1", "aggregation.dres1_2",
+    "aggregation.classif1.conv1", "aggregation.classif2.conv1", "aggregation.classif3.conv1",
+)
+
+
+def train_batch(seed: int) -> dict:
+    """One synthetic batch of the preset's size (numpy, made from a seed)."""
+    data = CONFIGS[TRAIN_SLICE].data
+    return make_batch(seed, data.global_batch, *data.crop)
+
+
+def compare_train_paths(batch: dict) -> dict:
+    """One step of the grouped path against one of the standard (cuDNN)
+    path on the same weights and batch, the heads' conv2 scaled by 1e-3 on
+    both so that the soft-argmin is soft: loss at rel <= TRAIN_LOSS_REL_TOL,
+    the seven kernel sites' weight gradients at cosine >= TRAIN_GRAD_COSINE,
+    and the three cost maps before the soft-argmin at COST4_REL_TOL (with
+    heads this soft, every prediction is close to the mean disparity, so
+    the loss alone says little)."""
+    cfg = CONFIGS[TRAIN_SLICE].model
+    out = {}
+    for layout in ("grouped", "standard"):
+        model = cfg.build(generator=torch.Generator().manual_seed(0), agg_layout=layout)
+        with torch.no_grad():
+            for i in (1, 2, 3):
+                head = getattr(model.aggregation, f"classif{i}").conv2
+                head.weight.mul_(1e-3)
+                head.bias.mul_(1e-3)
+        model.train()
+        costs = []
+        hook = model.aggregation.register_forward_hook(lambda m, i, o: costs.extend(c.detach().float() for c in o))
+        reset_counts()
+        preds = model(batch["left"], batch["right"])
+        loss = stereo_loss(preds, batch["disparity"], cfg.max_disp)
+        loss.backward()
+        torch.cuda.synchronize()
+        hook.remove()
+        counts = read_counts()
+        params = dict(model.named_parameters())
+        out[layout] = dict(loss=loss.item(), gband=(counts["gband_conv_s1"], counts["gband_conv_s1_input_grad"]),
+                           costs=costs,
+                           grads={s: params[f"{s}.conv.weight"].grad.float().flatten() for s in GBAND_SITES})
+        del model, params, preds, loss
+    if out["grouped"]["gband"] != (7, 7) or out["standard"]["gband"] != (0, 0):
+        raise AssertionError(f"gband_conv_s1 launches grouped {out['grouped']['gband']}, "
+                             f"standard {out['standard']['gband']}; expected (7, 7) and (0, 0)")
+    lg, ls = out["grouped"]["loss"], out["standard"]["loss"]
+    loss_rel = abs(lg - ls) / abs(ls)
+    cos = {s: F.cosine_similarity(out["grouped"]["grads"][s], out["standard"]["grads"][s], dim=0).item()
+           for s in GBAND_SITES}
+    cost_rel = [((g - r).abs().max() / r.abs().max()).item()
+                for g, r in zip(out["grouped"]["costs"], out["standard"]["costs"])]
+    result = dict(loss_grouped=lg, loss_standard=ls, loss_rel=loss_rel, grad_cosine=cos, cost_rel=cost_rel,
+                  loss_rel_tol=TRAIN_LOSS_REL_TOL, grad_cosine_min=TRAIN_GRAD_COSINE, cost_rel_tol=COST4_REL_TOL)
+    log("  train grouped vs standard: " + json.dumps(result))
+    if not loss_rel <= TRAIN_LOSS_REL_TOL:
+        raise AssertionError(f"train loss grouped {lg} vs standard {ls}: rel {loss_rel} > {TRAIN_LOSS_REL_TOL}")
+    if not min(cos.values()) >= TRAIN_GRAD_COSINE:
+        raise AssertionError(f"weight-gradient cosine {cos} below {TRAIN_GRAD_COSINE}")
+    if len(cost_rel) != 3 or not max(cost_rel) <= COST4_REL_TOL:
+        raise AssertionError(f"train cost maps grouped vs standard: rel {cost_rel} > {COST4_REL_TOL}")
+    del out
+    torch.cuda.empty_cache()
+    return result
+
+
+def profile_train_step(state, step, batch) -> dict:
+    """One train step under torch.profiler: the device's idle share, and its
+    time in the gband_conv_s1 kernel (the first 7 launches of the step are
+    the forwards, the next 7 the input gradients: one stream runs them in
+    order), in cuDNN's weight-gradient kernels, and in the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = sorted(device_events(prof), key=lambda e: e.time_range.start)
+    groups, by_name, gband = {}, {}, 0
+    for e in events:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        if "conv3d_mma_kernel<1" in e.name:
+            label = "gband_conv_s1 forward" if gband < 7 else "gband_conv_s1 input grad"
+            gband += 1
+        elif "wgrad" in e.name.lower():
+            label = "cuDNN weight grad (every conv)"
+        else:
+            label = "other"
+        groups[label] = groups.get(label, 0.0) + ms
+    if gband != 14:
+        raise AssertionError(f"profiled train step ran {gband} gband_conv_s1 kernels, expected 14")
+    busy_us, end = 0.0, float("-inf")
+    for e in events:
+        busy_us += max(0.0, e.time_range.end - max(e.time_range.start, end))
+        end = max(end, e.time_range.end)
+    return dict(
+        wall_ms=wall_ms, device_busy_ms=busy_us / 1e3, idle_share=1 - busy_us / 1e3 / wall_ms,
+        device_ms_by_group=groups, device_events=len(events),
+        top_kernels_ms=[(k[:90], v) for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]],
+    )
+
+
+def train(card: str) -> dict:
+    """Slice 3's path: ``train_loop`` over ``TRAIN_STEPS`` steps of one fixed
+    synthetic batch, counts 0 just before and read just after; then the
+    grouped/standard comparison, the step timing and a profiled step."""
+    cfg = CONFIGS[TRAIN_SLICE]
+    model = cfg.model.build(generator=torch.Generator().manual_seed(0))
+    if model.resolve_layout(torch.device("cuda")) != "grouped":
+        raise AssertionError(f"{TRAIN_SLICE} does not resolve to the grouped layout on CUDA")
+    fixed = train_batch(1)
+    state = create_train_state(model, make_optimizer(cfg.train.lr))
+    step = make_train_step(model, cfg.model.max_disp)
+    metrics_path = OUT_DIR / "train_metrics.jsonl"
+    metrics_path.unlink(missing_ok=True)
+    reset_counts()
+    state = train_loop(state, step, itertools.repeat(fixed), TRAIN_STEPS, log_every=1,
+                       metrics_path=str(metrics_path))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expected = {k: 0 for k in COUNTERS}
+    expected.update(gband_conv_s1=7 * TRAIN_STEPS, gband_conv_s1_input_grad=7 * TRAIN_STEPS)
+    if launches != expected:
+        raise AssertionError(f"train: launches {launches} for {TRAIN_STEPS} steps, expected {expected}")
+    losses = [json.loads(line)["loss"] for line in metrics_path.read_text().splitlines()]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall on a fixed batch: {losses}")
+    log(f"  train: {TRAIN_STEPS} steps, launches {launches}, gband_conv_s1 copies {gbk.gband_conv_s1.copies}; "
+        f"losses {losses}")
+
+    batch = to_device(fixed, torch.device("cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    runs = times_ms(lambda: step(state, batch))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(runs)
+    profile = profile_train_step(state, step, batch)
+    del state, model, step
+    torch.cuda.empty_cache()
+    compare = compare_train_paths(to_device(train_batch(2), torch.device("cuda")))
+    return dict(
+        card=card, steps=TRAIN_STEPS, launches=launches, losses=losses,
+        ms_per_step=ms, runs_ms=runs, pairs_per_s=cfg.data.global_batch / ms * 1e3,
+        peak_mem_gb=peak, profile=profile, grouped_vs_standard=compare,
     )
 
 
@@ -455,10 +831,11 @@ def main() -> int:
     kernels = [
         check_cost_volume(gen), check_fused_pair(gen), check_regression(gen, sm_clock_hz),
         check_conv3d_bn_s1(gen), check_conv3d_bn_down(gen), check_deconv3d_bn(gen),
+        check_correlation(gen), check_gband_conv_s1(gen),
     ]
     for k in kernels:
         log(f"phase kernels: {k['name']}: max|err| {k['max_abs_err']:.3e}, {k['ms']:.4f} ms, "
-            f"plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
+            f"plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}) [{card}]")
 
     paths = {
         "slice1_standard": serve("slice1_standard", "stackhourglass", SLICE_OVERRIDES, dict(
@@ -468,15 +845,30 @@ def main() -> int:
             fused_conv3d_pair=1, fused_upsample_softargmin=1), batch8=True),
         "basic": serve("basic", "basic", dict(use_pallas=True, regress_mode="fused"), dict(
             cost_volume_concat=1, fused_upsample_softargmin=1), batch8=False),
+        "basic_correlation": serve("basic_correlation", "basic", dict(use_pallas=True, regress_mode="fused"), dict(
+            cost_volume_correlation=1, fused_upsample_softargmin=1), batch8=False,
+            cost_tol=COST4_CORR_REL_TOL, cost_mode="correlation"),
     }
     for path, result in paths.items():
-        log(f"phase serving {path}: " + json.dumps(result))
+        log(f"phase serving {path} [{card}]: " + json.dumps(result))
     for path, overrides in (("slice2_grouped", SLICE2_OVERRIDES), ("slice1_standard", SLICE_OVERRIDES)):
-        log(f"phase profile {path}: " + json.dumps(profile_forward(path, overrides)))
+        log(f"phase profile {path} [{card}]: " + json.dumps(profile_forward(path, overrides)))
+    trained = train(card)
+    log(f"phase train {TRAIN_SLICE} [{card}]: " + json.dumps(trained))
+    paths["train_sceneflow_single"] = trained
+    # launches: each kernel's count on its main path (the grouped serving
+    # path runs the six slice-1/2 kernels, basic_correlation the correlation
+    # kernel, the train path gband_conv_s1: forwards + input gradients)
+    main_path = {"cost_volume_correlation": "basic_correlation", "gband_conv_s1": "train_sceneflow_single"}
     for k in kernels:
-        # launches: this slice's main path (the grouped path runs all six kernels)
-        k["launches"] = paths["slice2_grouped"]["launches"][k["name"]]
-        k["launches_by_path"] = {p: r["launches"][k["name"]] for p, r in paths.items()}
+        by_path = {p: r["launches"][k["name"]] for p, r in paths.items()}
+        if k["name"] == "gband_conv_s1":
+            for p, r in paths.items():
+                by_path[p] += r["launches"]["gband_conv_s1_input_grad"]
+            k["launches_forward"] = trained["launches"]["gband_conv_s1"]
+            k["launches_input_grad"] = trained["launches"]["gband_conv_s1_input_grad"]
+        k["launches"] = by_path[main_path.get(k["name"], "slice2_grouped")]
+        k["launches_by_path"] = by_path
     log(f"total {time.time() - t0:.1f} s")
     log(json.dumps({"kernels": kernels, "card": card}))
     log(card)

@@ -6,8 +6,10 @@ eval on a CUDA tensor: ``regress_mode`` -> "fused", ``agg_fused`` "auto" ->
 on, and ``agg_layout`` "auto" -> "grouped" when max_disp/4 % 16 == 0 (else
 "standard"); on the CPU they resolve to the plain paths. "grouped" keeps the
 JAX name of the aggregation's layer-kernel dispatch; the port computes it on
-NDHWC volumes. ``remat`` is a training knob and has no effect on the eval
-forward.
+NDHWC volumes. ``remat`` is a training knob (activation checkpointing of the
+hourglasses) with no effect on the eval forward; ``build`` passes it to
+``ECMStereo`` only, as ``ecm_tpu`` does, so ``ECMBasic`` keeps its default
+(True).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ class ModelConfig:
             dtype=torch.bfloat16 if self.bf16 else torch.float32,
         )
         if self.name in ("stackhourglass", "ecm"):
+            kw["remat"] = self.remat
             kw["agg_layout"] = self.agg_layout
             kw["agg_fused"] = self.agg_fused
         kw.update(overrides)
@@ -142,3 +145,6 @@ SLICE_OVERRIDES = dict(
 # the second slice: kitti_infer along the JAX package's default TPU path
 # (grouped layer kernels), with the cost-volume and regression kernels
 SLICE2_OVERRIDES = dict(agg_layout="grouped", use_pallas=True, regress_mode="fused")
+# the third slice: training along this preset, whose "auto" layout is the
+# grouped path on CUDA (gband_conv_s1 at the seven full-resolution s1 convs)
+TRAIN_SLICE = "sceneflow_single"

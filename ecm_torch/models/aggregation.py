@@ -4,6 +4,14 @@
     cost0 = dres1(dres0(vol) [+ context0]) + dres0(vol) [+ context0]
     out_i, pre_i, post_i = hourglass_i(out_{i-1} [+ context_i], pre_1, post_{i-1}, cost0)
     cost = classif_last(out_last)              (eval: only the last head runs)
+    cost_i = classif_i(out_i) + cost_{i-1}     (training: every head, chained)
+
+Training (JAX's non-fused branch, ``aggregation.py:343-415``) runs the
+module chain with batch-statistics BatchNorm and every hourglass plain (under
+``remat`` when it is on). In the "grouped" layout the stride-1 convs of the
+full-resolution stack (the four dres convs and each head's conv1) go through
+``gband_conv_s1``, forward and input gradient, as ``GConv3D`` routes them in
+JAX; no eval kernel runs.
 
 Three eval paths, one set of parameters, BN folded for inference where a
 kernel runs:
@@ -28,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ecm_torch.models.context import ContextMapping
-from ecm_torch.models.layers import ConvBN, ConvTransposeBN, conv, fold_bn
+from ecm_torch.models.layers import ConvBN, ConvTransposeBN, conv, fold_bn, remat
 from ecm_torch.ops.cuda_fused_agg import fused_conv3d_pair
 from ecm_torch.ops.cuda_gband import conv3d_bn_down, conv3d_bn_s1
 from ecm_torch.ops.cuda_gdeconv import deconv3d_bn
@@ -84,14 +92,17 @@ class ClassifHead(nn.Module):
         self.conv1 = _conv3(c, c)
         self.conv2 = nn.Conv3d(c, 1, 3, padding=1, bias=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv1.forward_cf(x.movedim(-1, 1))
+    def forward(self, x: torch.Tensor, gband: bool = False) -> torch.Tensor:
+        """``gband``: conv1 through ``gband_conv_s1`` (training, grouped)."""
+        y = self.conv1(x, gband=gband).movedim(-1, 1)
         return conv(self.conv2, y).movedim(1, -1)
 
 
 class ECMAggregation(nn.Module):
     """Volume ``[B, D, H, W, Cin]`` + context features ``[B, H, W, C]`` ->
-    list of cost maps ``[B, D, H, W]`` (at eval, the last head only)."""
+    list of cost maps ``[B, D, H, W]`` (at eval, the last head only; in
+    training, one per head). ``remat``: each hourglass under activation
+    checkpointing in training, as ``nn.remat`` wraps it in JAX."""
 
     def __init__(
         self,
@@ -101,12 +112,14 @@ class ECMAggregation(nn.Module):
         context_fusion: str = "add",
         context_stages: tuple[int, ...] = (0, 1, 2, 3),
         fused: str = "off",
+        remat: bool = True,
     ):
         super().__init__()
         if fused not in ("off", "on", "auto"):
             raise ValueError(f"fused must be off|on|auto, got {fused!r}")
         c = channels
         self.fused = fused
+        self.remat = remat
         self.num_hourglass = num_hourglass
         self.context_fusion = context_fusion
         self.context_stages = tuple(context_stages)
@@ -136,14 +149,13 @@ class ECMAggregation(nn.Module):
     def forward(
         self, volume: torch.Tensor, ctx2d: torch.Tensor, layout: str = "standard"
     ) -> list[torch.Tensor]:
-        if self.training:
-            raise NotImplementedError("the training forward is not ported yet (ROADMAP queue 1)")
         if layout not in LAYOUTS:
             raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+        train = self.training
         kernels = layout == "grouped"
-        fused = not kernels and self.use_fused(volume)
+        fused = not train and not kernels and self.use_fused(volume)
         cm0 = self._context(0)
-        if kernels:
+        if kernels and not train:
             cost0 = self._dres_kernels(volume, ctx2d)
         elif fused:
             ctx_map = cm0(ctx2d, return_map=True) if cm0 is not None else None
@@ -154,23 +166,37 @@ class ECMAggregation(nn.Module):
                 x, *self._fold(self.dres1_1), *self._fold(self.dres1_2),
                 relu2=False, residual=True,
             )
-        else:
-            x = self.dres0_2(self.dres0_1(volume))
+        else:  # the module chain: eval "standard", or training on either layout
+            x = self.dres0_2(self.dres0_1(volume, gband=kernels), gband=kernels)
             if cm0 is not None:
                 x = cm0(ctx2d, x)
-            cost0 = self.dres1_2(self.dres1_1(x)) + x
+            cost0 = self.dres1_2(self.dres1_1(x, gband=kernels), gband=kernels) + x
 
-        inp, pre1, post = cost0, None, None
+        checkpointed = train and self.remat and torch.is_grad_enabled()
+        outs, inp, pre1, post = [], cost0, None, None
         for i in range(1, self.num_hourglass + 1):
             cmi = self._context(i)
             if cmi is not None:
                 inp = cmi(ctx2d, inp)
-            inp, pre, post = getattr(self, f"hourglass{i}")(
-                inp, pre1, post if i > 1 else None, cost0, kernels=kernels
-            )
+            hg = getattr(self, f"hourglass{i}")
+            args = (inp, pre1, post if i > 1 else None, cost0)
+            if checkpointed:
+                inp, pre, post = remat(hg, *args)
+            else:
+                inp, pre, post = hg(*args, kernels=kernels and not train)
             if i == 1:
                 pre1 = pre
+            outs.append(inp)
 
+        if train:
+            costs, prev = [], None
+            for i, out in enumerate(outs, 1):
+                cost = getattr(self, f"classif{i}")(out, gband=kernels)
+                if prev is not None:
+                    cost = cost + prev
+                prev = cost
+                costs.append(cost.squeeze(-1))
+            return costs
         head = getattr(self, f"classif{self.num_hourglass}")
         if fused or kernels:
             cost = fused_conv3d_pair(

@@ -1,8 +1,9 @@
-"""End-to-end ECM stereo models, eval forward (port of
-``ecm_tpu/models/ecm.py``): left/right ``[B, H, W, 3]`` -> siamese features
--> cost volume ``[B, D/4, H/4, W/4, 2C]`` -> 3D aggregation -> cost map
-``[B, D/4, H/4, W/4]`` -> x4 trilinear upsample and soft-argmin -> disparity
-``[B, H, W]``.
+"""End-to-end ECM stereo models (port of ``ecm_tpu/models/ecm.py``):
+left/right ``[B, H, W, 3]`` -> siamese features -> cost volume
+``[B, D/4, H/4, W/4, 2C]`` -> 3D aggregation -> cost maps
+``[B, D/4, H/4, W/4]`` -> x4 trilinear upsample and soft-argmin ->
+disparities ``[B, H, W]``: one at eval; in training (``model.train()``)
+three for ``ECMStereo`` and one for ``ECMBasic``.
 
 ``ECMStereo`` aggregates with context-mapped stacked hourglasses and needs H
 and W multiples of 16 (the /4 features meet two stride-2 hourglass levels);
@@ -18,7 +19,7 @@ from torch import nn
 from ecm_torch.models.aggregation import LAYOUTS, ClassifHead, ECMAggregation
 from ecm_torch.models.context import ContextMapping
 from ecm_torch.models.features import FeatureExtraction
-from ecm_torch.models.layers import ConvBN, init_weights
+from ecm_torch.models.layers import ConvBN, init_weights, remat
 from ecm_torch.ops.cost_volume import cost_volume
 from ecm_torch.ops.cuda_regression import fused_upsample_softargmin
 from ecm_torch.ops.softargmin import disparity_regression
@@ -40,7 +41,9 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return torch.device("cuda")
 
 
-def regress_disparity(cost4: torch.Tensor, max_disp: int, h: int, w: int, mode: str) -> torch.Tensor:
+def regress_disparity(
+    cost4: torch.Tensor, max_disp: int, h: int, w: int, mode: str, train: bool = False
+) -> torch.Tensor:
     """Quarter-resolution cost ``[B, D/4, H/4, W/4]`` -> disparity ``[B, H, W]``.
 
     - "fullres": upsample the cost to ``[B, D, H, W]``, then soft-argmin;
@@ -49,9 +52,14 @@ def regress_disparity(cost4: torch.Tensor, max_disp: int, h: int, w: int, mode: 
     - "lowres": upsample only D, soft-argmin at 1/4 resolution, then
       bilinear-upsample the disparity (approximate);
     - "auto": "fused" on a CUDA tensor, else "fullres".
+
+    ``train``: "auto" and "fused" become "fullres" (the kernel is forward
+    only), as in JAX; "lowres" stays.
     """
     if mode not in REGRESS_MODES:
         raise ValueError(f"unknown regress_mode {mode!r}; expected one of {REGRESS_MODES}")
+    if train and mode in ("auto", "fused"):
+        mode = "fullres"
     if mode == "auto":
         mode = "fused" if cost4.is_cuda else "fullres"
     if mode == "lowres":
@@ -66,9 +74,12 @@ def regress_disparity(cost4: torch.Tensor, max_disp: int, h: int, w: int, mode: 
 class _StereoModel(nn.Module):
     """What both models share: the checks of ``max_disp`` and
     ``regress_mode``, and the forward, which regresses each cost map of
-    ``cost_maps`` to a disparity ``[B, H, W]``."""
+    ``cost_maps`` to a disparity ``[B, H, W]``. ``remat`` (training only):
+    activation checkpointing of the 3D blocks, as ``nn.remat`` in JAX."""
 
-    def __init__(self, max_disp: int, cost_mode: str, use_pallas: bool, regress_mode: str):
+    def __init__(
+        self, max_disp: int, cost_mode: str, use_pallas: bool, regress_mode: str, remat: bool
+    ):
         super().__init__()
         if max_disp % 4:
             raise ValueError(f"max_disp must be a multiple of 4, got {max_disp}")
@@ -78,17 +89,18 @@ class _StereoModel(nn.Module):
         self.cost_mode = cost_mode
         self.use_pallas = use_pallas
         self.regress_mode = regress_mode
+        self.remat = remat
 
     def forward(self, left: torch.Tensor, right: torch.Tensor) -> list[torch.Tensor]:
         _, h, w, _ = left.shape
         return [
-            regress_disparity(c4, self.max_disp, h, w, self.regress_mode)
+            regress_disparity(c4, self.max_disp, h, w, self.regress_mode, self.training)
             for c4 in self.cost_maps(left, right)
         ]
 
 
 class ECMStereo(_StereoModel):
-    """Flagship stacked-hourglass ECM model (eval forward).
+    """Flagship stacked-hourglass ECM model.
 
     ``use_pallas`` keeps its JAX name: in the port it selects the CUDA cost-
     volume kernel. ``agg_layout`` keeps the JAX names of the aggregation's
@@ -107,9 +119,10 @@ class ECMStereo(_StereoModel):
         agg_fused: str = "off",
         agg_layout: str = "auto",
         regress_mode: str = "auto",
+        remat: bool = True,
         dtype: torch.dtype = torch.float32,
     ):
-        super().__init__(max_disp, cost_mode, use_pallas, regress_mode)
+        super().__init__(max_disp, cost_mode, use_pallas, regress_mode, remat)
         if agg_layout not in (*LAYOUTS, "auto"):
             raise ValueError(f"agg_layout must be auto|standard|grouped, got {agg_layout!r}")
         if agg_layout == "grouped" and (max_disp // 4) % 16:
@@ -122,6 +135,7 @@ class ECMStereo(_StereoModel):
             in_channels=2 * c if cost_mode == "concat" else 1,
             context_fusion=context_fusion,
             fused=agg_fused,
+            remat=remat,
         )
 
     def resolve_layout(self, device: torch.device) -> str:
@@ -134,9 +148,7 @@ class ECMStereo(_StereoModel):
 
     def cost_maps(self, left: torch.Tensor, right: torch.Tensor) -> list[torch.Tensor]:
         """The quarter-resolution cost maps ``[B, D/4, H/4, W/4]`` that the
-        soft-argmin reads (at eval, one)."""
-        if self.training:
-            raise NotImplementedError("the training forward is not ported yet (ROADMAP queue 1)")
+        soft-argmin reads (at eval, one; in training, three)."""
         _, h, w, _ = left.shape
         if h % 16 or w % 16:
             raise ValueError(f"ECMStereo needs H, W multiples of 16, got {h}x{w}")
@@ -159,10 +171,11 @@ class ResBlock3d(nn.Module):
 
 
 class ECMBasic(_StereoModel):
-    """Basic (non-stacked) variant (eval forward; port of ``ecm_tpu``'s
-    ``ECMBasic``): dres0 (two convbn-ReLU), context0, four residual blocks
-    ``dres1..4``, one classifier. Its 3D convs run on cuDNN, as they run on
-    XLA in JAX; ``use_pallas`` and ``regress_mode`` act as in ``ECMStereo``."""
+    """Basic (non-stacked) variant (port of ``ecm_tpu``'s ``ECMBasic``): dres0
+    (two convbn-ReLU), context0, four residual blocks ``dres1..4`` (each under
+    ``remat`` in training), one classifier. Its 3D convs run on cuDNN, as
+    they run on XLA in JAX; ``use_pallas`` and ``regress_mode`` act as in
+    ``ECMStereo``."""
 
     def __init__(
         self,
@@ -172,9 +185,10 @@ class ECMBasic(_StereoModel):
         context_fusion: str = "add",
         use_pallas: bool = False,
         regress_mode: str = "auto",
+        remat: bool = True,
         dtype: torch.dtype = torch.float32,
     ):
-        super().__init__(max_disp, cost_mode, use_pallas, regress_mode)
+        super().__init__(max_disp, cost_mode, use_pallas, regress_mode, remat)
         c = feature_channels
         self.feature = FeatureExtraction(c, dtype=dtype)
         self.dres0_1 = ConvBN(2 * c if cost_mode == "concat" else 1, c, 3, ndim=3)
@@ -187,19 +201,24 @@ class ECMBasic(_StereoModel):
 
     def cost_maps(self, left: torch.Tensor, right: torch.Tensor) -> list[torch.Tensor]:
         """The quarter-resolution cost map ``[B, D/4, H/4, W/4]``, in a list."""
-        if self.training:
-            raise NotImplementedError("the training forward is not ported yet (ROADMAP queue 1)")
         _, h, w, _ = left.shape
         if h % 4 or w % 4:
             raise ValueError(f"ECMBasic needs H, W multiples of 4, got {h}x{w}")
         fl = self.feature(left)
         fr = self.feature(right)
-        x = cost_volume(fl, fr, self.max_disp // 4, mode=self.cost_mode, use_pallas=self.use_pallas)
-        x = self.dres0_2(self.dres0_1(x))
+        vol = cost_volume(fl, fr, self.max_disp // 4, mode=self.cost_mode, use_pallas=self.use_pallas)
+        return self.aggregate(vol, fl)
+
+    def aggregate(self, vol: torch.Tensor, fl: torch.Tensor) -> list[torch.Tensor]:
+        """The cost map of the NDHWC volume ``vol`` (left features ``fl``
+        for the context), in a list."""
+        x = self.dres0_2(self.dres0_1(vol))
         if hasattr(self, "context0"):
             x = self.context0(fl, x)
+        checkpointed = self.training and self.remat and torch.is_grad_enabled()
         for i in range(1, 5):
-            x = getattr(self, f"dres{i}")(x)
+            block = getattr(self, f"dres{i}")
+            x = remat(block, x) if checkpointed else block(x)
         return [self.classif(x).squeeze(-1)]
 
 

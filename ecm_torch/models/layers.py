@@ -5,15 +5,25 @@ Every module takes and returns channels-last tensors (NHWC for 2D, NDHWC for
 f32; convolutions cast their weights to the activation dtype (bf16 on the
 serving path), and BatchNorm computes in f32 from f32 statistics, as the JAX
 modules do. Padding is explicit, ``dilation * (k // 2)``.
+
+BatchNorm keeps flax's training semantics (``BatchNorm2d``/``BatchNorm3d``
+below): the running variance folds in the *biased* batch variance, and
+:func:`remat` recomputes a block without updating the running statistics a
+second time, as ``nn.remat`` does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ecm_torch.ops.cuda_gband import gband_conv_s1
 
 # single source of truth for the BatchNorm epsilon (torch default), shared by
 # the BN modules and the eval-time BN folds of the fused aggregation path
@@ -66,6 +76,77 @@ def linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, _w(m.weight, x.dtype), _w(m.bias, x.dtype))
 
 
+_stats = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_batch_stats():
+    """Inside, BatchNorm in training normalises with batch statistics but
+    leaves its running statistics alone (a recomputation under :func:`remat`)."""
+    prev = getattr(_stats, "frozen", False)
+    _stats.frozen = True
+    try:
+        yield
+    finally:
+        _stats.frozen = prev
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under activation checkpointing (``nn.remat`` in JAX): the
+    backward recomputes ``fn``'s activations, with the running statistics of
+    its BatchNorms frozen, so they are updated once per step."""
+    return checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), frozen_batch_stats()),
+    )
+
+
+class _FlaxBatchNorm:
+    """flax ``nn.BatchNorm`` in training (momentum 0.9, i.e. torch's 0.1):
+    batch mean and biased variance in f32 over every dim but C, normalised in
+    f32 and returned in the input's dtype; the running statistics fold in
+    the biased variance (torch's own BatchNorm folds in the unbiased one).
+    At eval, torch's BatchNorm with the running statistics."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        c = x.shape[1]
+        n = x.numel() // c
+        if n > 1:
+            # with momentum 1, batch_norm writes the batch mean and the
+            # unbiased batch variance into these two buffers
+            mean = torch.zeros_like(self.running_mean)
+            var = torch.ones_like(self.running_var)
+            y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+            var = var * ((n - 1) / n)
+        else:
+            # one value per channel (an SPP branch pooled to 1x1 at batch 1):
+            # flax's mean is the value and its variance 0, so y is the bias
+            shape = (1, c) + (1,) * (x.ndim - 2)
+            xf = x.float()
+            var = torch.zeros_like(self.running_var)
+            y = (xf - xf).mul(torch.rsqrt(var + self.eps).mul(self.weight).view(shape))
+            y = y.add(self.bias.view(shape)).to(x.dtype)
+            mean = xf.detach().reshape(c)
+        if not getattr(_stats, "frozen", False):
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked += 1
+        return y
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    pass
+
+
 def fold_bn(bn: nn.modules.batchnorm._BatchNorm) -> tuple[torch.Tensor, torch.Tensor]:
     """Inference-fold a BatchNorm into per-channel f32 (scale, bias)."""
     scale = bn.weight / torch.sqrt(bn.running_var + BN_EPS)
@@ -81,7 +162,7 @@ class ConvBN(nn.Module):
     ):
         super().__init__()
         conv_cls = nn.Conv2d if ndim == 2 else nn.Conv3d
-        bn_cls = nn.BatchNorm2d if ndim == 2 else nn.BatchNorm3d
+        bn_cls = BatchNorm2d if ndim == 2 else BatchNorm3d
         self.conv = conv_cls(
             cin, cout, kernel_size, stride=stride, padding=dilation * (kernel_size // 2),
             dilation=dilation, bias=False,
@@ -89,12 +170,20 @@ class ConvBN(nn.Module):
         self.bn = bn_cls(cout, eps=BN_EPS, momentum=0.1)
         self.relu = relu
 
-    def forward_cf(self, x: torch.Tensor) -> torch.Tensor:
-        """Channels-first in, channels-first out."""
-        y = self.bn(conv(self.conv, x))
+    def _bn_relu(self, y: torch.Tensor) -> torch.Tensor:
+        y = self.bn(y)
         return F.relu(y) if self.relu else y
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_cf(self, x: torch.Tensor) -> torch.Tensor:
+        """Channels-first in, channels-first out."""
+        return self._bn_relu(conv(self.conv, x))
+
+    def forward(self, x: torch.Tensor, gband: bool = False) -> torch.Tensor:
+        """``gband``: the conv through ``gband_conv_s1`` (a 3D stride-1 conv
+        of the full-resolution stack in training, JAX's ``GConv3D`` path)."""
+        if gband:
+            y = gband_conv_s1(x, self.conv.weight)
+            return self._bn_relu(y.movedim(-1, 1)).movedim(1, -1)
         return self.forward_cf(x.movedim(-1, 1)).movedim(1, -1)
 
 
@@ -106,7 +195,7 @@ class ConvTransposeBN(nn.Module):
         self.deconv = nn.ConvTranspose3d(
             cin, cout, 3, stride=2, padding=1, output_padding=1, bias=False
         )
-        self.bn = nn.BatchNorm3d(cout, eps=BN_EPS, momentum=0.1)
+        self.bn = BatchNorm3d(cout, eps=BN_EPS, momentum=0.1)
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

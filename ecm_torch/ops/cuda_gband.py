@@ -14,6 +14,11 @@ context map ``[B, 1, H, W, Cout]`` broadcast over D, added in f32. Returns
 
 On the card, bf16 with Cin a multiple of 8 runs on the tensor cores (an
 implicit GEMM, f32 accumulation); f32, or another Cin, on the CUDA cores.
+
+:func:`gband_conv_s1` is the training path's differentiable conv (replaces
+``ecm_tpu/ops/pallas_gband.py::gband_conv_s1`` and its custom VJP): the
+forward and the input gradient run the same kernel, the weight gradient goes
+to cuDNN, as it goes to XLA outside any Pallas kernel in JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from ecm_torch.kernels.build import check, library
 
@@ -58,7 +64,7 @@ def _check(x, weight, scale, bias, add, stride):
     cout = weight.shape[0]
     if tuple(weight.shape) != (cout, cin, 3, 3, 3):
         raise ValueError(f"weight {tuple(weight.shape)} is not [Cout, {cin}, 3, 3, 3]")
-    if scale.numel() != cout or bias.numel() != cout:
+    if scale is not None and (scale.numel() != cout or bias.numel() != cout):
         raise ValueError(f"scale/bias of {scale.numel()}/{bias.numel()} for {cout} channels")
     if add is not None:
         if stride != 1:
@@ -150,3 +156,86 @@ def conv3d_bn_down(x, weight, scale, bias, *, relu=True):
 
 conv3d_bn_s1.launches = 0
 conv3d_bn_down.launches = 0
+
+
+def gband_conv_s1_torch(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`gband_conv_s1`'s forward: the NDHWC 3x3x3 conv,
+    stride 1, zero padding 1, weight cast to x's dtype."""
+    return F.conv3d(x.movedim(-1, 1), weight.to(x.dtype), padding=1).movedim(1, -1)
+
+
+def _conv_s1(x: torch.Tensor, weight: torch.Tensor, what: str) -> torch.Tensor:
+    """The conv on x's device: the kernel (scale 1, bias 0, no ReLU) for a
+    CUDA tensor, the plain version for a CPU one."""
+    if x.device.type == "cpu":
+        return gband_conv_s1_torch(x, weight)
+    cout = weight.shape[0]
+    ones = torch.ones(cout, device=x.device)
+    return _launch(x, weight, ones, torch.zeros_like(ones), None, 1, False, what)
+
+
+def gband_conv_s1_input_grad(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The input gradient of :func:`gband_conv_s1` (``pallas_gband.py:988-991``):
+    the same conv of dy ``[B, D, H, W, Cout]`` with the kernel flipped in
+    (d, h, w) and transposed in (in, out). The kernel for a contiguous CUDA
+    dy (counted in ``gband_conv_s1.backward_launches``), the plain version
+    for a CPU one."""
+    dx = _conv_s1(dy, weight.flip(2, 3, 4).transpose(0, 1), "gband_conv_s1 input grad")
+    if dy.is_cuda:
+        gband_conv_s1.backward_launches += 1
+    return dx
+
+
+def _contiguous(t: torch.Tensor) -> torch.Tensor:
+    """The kernel reads whole channel rows: a strided x or dy is copied once
+    (counted in ``gband_conv_s1.copies``)."""
+    if t.is_contiguous():
+        return t
+    gband_conv_s1.copies += 1
+    return t.contiguous()
+
+
+class _GbandConvS1(torch.autograd.Function):
+    """Stride-1 conv with the VJP of ``pallas_gband.py:979-1018``: dx is the
+    same conv of dy with the kernel flipped in (d, h, w) and transposed in
+    (in, out); dw is cuDNN's weight gradient (XLA's in JAX)."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        x = _contiguous(x)
+        ctx.save_for_backward(x, weight)
+        out = _conv_s1(x, weight, "gband_conv_s1")
+        if x.is_cuda:
+            gband_conv_s1.launches += 1
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dy = _contiguous(dy)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = gband_conv_s1_input_grad(dy, weight)
+        if ctx.needs_input_grad[1]:
+            dw = torch.ops.aten.convolution_backward(
+                dy.movedim(-1, 1), x.movedim(-1, 1), weight, None, [1, 1, 1], [1, 1, 1],
+                [1, 1, 1], False, [0, 0, 0], 1, [False, True, False],
+            )[1]
+        return dx, dw
+
+
+def gband_conv_s1(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Differentiable NDHWC 3x3x3 conv, stride 1, pad 1, no BN and no ReLU:
+    x ``[B, D, H, W, Cin]``, weight ``[Cout, Cin, 3, 3, 3]`` (cast to x's
+    dtype, so its gradient comes back in the weight's dtype). A CUDA tensor
+    runs the kernel forward (``.launches``) and for the input gradient
+    (``.backward_launches``); a CPU tensor the plain version both ways.
+    ``.copies`` counts the copies of a strided x or dy."""
+    _check(x, weight, None, None, None, 1)
+    return _GbandConvS1.apply(x, weight.to(x.dtype))
+
+
+gband_conv_s1.launches = 0
+gband_conv_s1.backward_launches = 0
+gband_conv_s1.copies = 0

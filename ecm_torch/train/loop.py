@@ -1,0 +1,82 @@
+"""Training loop (port of ``ecm_tpu/train/loop.py``): steps over a batch
+iterator, metrics to stdout and JSONL every ``log_every`` steps, with the JAX
+package's log line. Checkpoints and TensorBoard are not ported yet (ROADMAP
+queue 1: "checkpoint and writers") and raise.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from collections.abc import Iterator
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ecm_torch.train.state import TrainState
+
+BATCH_KEYS = ("left", "right", "disparity")
+
+
+def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
+    """The model's inputs of a numpy batch, as f32 tensors on ``device``."""
+    return {k: torch.from_numpy(np.asarray(batch[k], np.float32)).to(device) for k in BATCH_KEYS}
+
+
+def train_loop(
+    state: TrainState,
+    train_step: Callable,
+    data_iter: Iterator[dict[str, np.ndarray]],
+    num_steps: int,
+    log_every: int = 20,
+    ckpt_manager=None,
+    metrics_path: str | None = None,
+    eval_fn: Callable[[TrainState, int], dict] | None = None,
+    eval_every: int = 0,
+    tensorboard_dir: str | None = None,
+) -> TrainState:
+    """Run steps ``state.step .. num_steps - 1``; batches go to the model's
+    device. Returns the state."""
+    if ckpt_manager is not None:
+        raise NotImplementedError("checkpoints are not ported yet (ROADMAP queue 1, checkpoint and writers)")
+    if tensorboard_dir:
+        raise NotImplementedError("TensorBoard writers are not ported yet (ROADMAP queue 1, checkpoint and writers)")
+    device = next(state.model.parameters()).device
+    log_f = open(metrics_path, "a") if metrics_path else None
+    t0 = time.perf_counter()
+    window_images = 0
+    try:
+        for step in range(state.step, num_steps):
+            batch = to_device(next(data_iter), device)
+            state, metrics = train_step(state, batch)
+            window_images += batch["left"].shape[0]
+            if (step + 1) % log_every == 0 or step + 1 == num_steps:
+                m = {k: float(v) for k, v in metrics.items()}
+                dt = time.perf_counter() - t0
+                m.update(
+                    step=step + 1,
+                    pairs_per_s=window_images / max(dt, 1e-9),
+                    step_time_ms=1e3 * dt / log_every,
+                )
+                print(
+                    f"step {step + 1}/{num_steps} loss={m['loss']:.4f} "
+                    f"epe={m['epe']:.3f} d1={m['d1_all']:.4f} "
+                    f"{m['pairs_per_s']:.2f} pairs/s",
+                    flush=True,
+                )
+                if log_f:
+                    log_f.write(json.dumps(m) + "\n")
+                    log_f.flush()
+                t0 = time.perf_counter()
+                window_images = 0
+            if eval_fn is not None and eval_every and (step + 1) % eval_every == 0:
+                eval_metrics = eval_fn(state, step + 1)
+                print(f"eval @ {step + 1}: {eval_metrics}", flush=True)
+                if log_f:
+                    log_f.write(json.dumps({"step": step + 1, "eval": eval_metrics}) + "\n")
+                    log_f.flush()
+    finally:
+        if log_f:
+            log_f.close()
+    return state

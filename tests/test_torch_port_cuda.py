@@ -8,9 +8,20 @@ JAX, so run these there without the JAX test setup:
 import pytest
 import torch
 
-from ecm_torch.ops.cuda_cost_volume import cost_volume_concat, cost_volume_concat_torch
+from ecm_torch.ops.cuda_cost_volume import (
+    cost_volume_concat,
+    cost_volume_concat_torch,
+    cost_volume_correlation,
+    cost_volume_correlation_torch,
+)
 from ecm_torch.ops.cuda_fused_agg import fused_conv3d_pair, fused_conv3d_pair_torch
-from ecm_torch.ops.cuda_gband import conv3d_bn_down, conv3d_bn_s1, conv3d_bn_torch
+from ecm_torch.ops.cuda_gband import (
+    conv3d_bn_down,
+    conv3d_bn_s1,
+    conv3d_bn_torch,
+    gband_conv_s1,
+    gband_conv_s1_torch,
+)
 from ecm_torch.ops.cuda_gdeconv import deconv3d_bn, deconv3d_bn_torch
 from ecm_torch.ops.cuda_regression import (
     fused_upsample_softargmin,
@@ -125,3 +136,49 @@ def test_deconv3d_bn_kernel(dev, cin, cout, with_add, dtype):
     torch.cuda.synchronize()
     assert deconv3d_bn.launches == n + 1
     assert _rel(out, deconv3d_bn_torch(x, k, s, bb, add)) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("cin,cout", [(16, 8), (8, 16), (5, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gband_conv_s1_kernel(dev, cin, cout, dtype):
+    """Forward and input gradient through the kernel (one launch each),
+    against the plain version's autograd; the weight gradient (cuDNN) too."""
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(2, 5, 6, 13, cin, generator=g).to(dev, dtype)
+    w = (torch.randn(cout, cin, 3, 3, 3, generator=g) * 0.2).to(dev)
+    dy = torch.randn(2, 5, 6, 13, cout, generator=g).to(dev, dtype)
+    n = (gband_conv_s1.launches, gband_conv_s1.backward_launches, conv3d_bn_s1.launches)
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    out = gband_conv_s1(xk, wk)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert (gband_conv_s1.launches, gband_conv_s1.backward_launches, conv3d_bn_s1.launches) == (
+        n[0] + 1, n[1] + 1, n[2])
+    xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ref = gband_conv_s1_torch(xp, wp)
+    ref.backward(dy)
+    assert _rel(out, ref) <= _tol(dtype)
+    assert _rel(xk.grad, xp.grad) <= _tol(dtype)
+    assert _rel(wk.grad, wp.grad) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 32), (torch.float32, 5)])
+def test_correlation_kernel(dev, dtype, c):
+    """The correlation kernel against the plain builder (f32 sums of the
+    same products: rel 1e-5 in f32, one bf16 rounding in bf16), and its
+    Function backward (the plain builder's VJP) against autograd."""
+    g = torch.Generator().manual_seed(7)
+    fl, fr = (torch.randn(2, 5, 40, c, generator=g).to(dev, dtype) for _ in range(2))
+    n = cost_volume_correlation.launches
+    a, b = fl.clone().requires_grad_(), fr.clone().requires_grad_()
+    out = cost_volume_correlation(a, b, 12)
+    torch.cuda.synchronize()
+    assert cost_volume_correlation.launches == n + 1
+    ref = cost_volume_correlation_torch(fl, fr, 12)
+    assert out.shape == (2, 12, 5, 40, 1)
+    assert _rel(out, ref) <= (1e-2 if dtype == torch.bfloat16 else 1e-5)
+    gout = torch.randn(out.shape, generator=g).to(dev, dtype)
+    out.backward(gout)
+    ap, bp = fl.clone().requires_grad_(), fr.clone().requires_grad_()
+    cost_volume_correlation_torch(ap, bp, 12).backward(gout)
+    assert torch.equal(a.grad, ap.grad) and torch.equal(b.grad, bp.grad)

@@ -47,19 +47,27 @@ def test_build_model_without_gpu_raises(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """What is still to port raises: the training forward (both models) and
-    the correlation volume's kernel (``use_pallas=True``)."""
+    """What is still to port raises: the trainer's checkpoints and TensorBoard
+    writers. What the training slice ported runs: the
+    training forward of both models (3 and 1 predictions) and the
+    correlation volume with ``use_pallas=True``."""
     from ecm_torch.models import build_model
+    from ecm_torch.train.loop import train_loop
+    from ecm_torch.train.state import create_train_state
 
     images = (torch.zeros(1, 32, 48, 3), torch.zeros(1, 32, 48, 3))
-    for name in ("stackhourglass", "basic"):
+    for name, n in (("stackhourglass", 3), ("basic", 1)):
         m = build_model(name, device="cpu", max_disp=16, feature_channels=8)
         m.train()
-        with pytest.raises(NotImplementedError, match="training"):
-            m(*images)
+        assert len(m(*images)) == n
     m = build_model(device="cpu", max_disp=16, feature_channels=8, cost_mode="correlation", use_pallas=True)
-    with pytest.raises(NotImplementedError, match="correlation"), torch.inference_mode():
-        m(*images)
+    with torch.inference_mode():
+        assert m(*images)[0].shape == (1, 32, 48)
+    state = create_train_state(m)
+    for kw, match in ((dict(ckpt_manager=object()), "checkpoint"),
+                      (dict(tensorboard_dir="tb"), "TensorBoard")):
+        with pytest.raises(NotImplementedError, match=match):
+            train_loop(state, None, iter(()), 1, **kw)
 
 
 def test_kernel_build_is_lazy():

@@ -11,10 +11,11 @@ import numpy as np
 import torch
 
 
-def flax_variables(model, *args, seed: int = 0, **kwargs) -> dict:
+def flax_variables(model, *args, seed: int = 0, bn_bias: tuple[float, float] | None = None, **kwargs) -> dict:
     """Variables for ``model.init(..., train=True)`` drawn from numpy:
     fan-in-scaled kernels, random biases, BN affine and running statistics
-    away from the identity, so every fold and layout rule is exercised."""
+    away from the identity, so every fold and layout rule is exercised.
+    ``bn_bias``: draw the BatchNorm shifts uniform in this range instead."""
     shapes = jax.eval_shape(
         lambda: model.init({"params": jax.random.PRNGKey(0)}, *args, train=True, **kwargs)
     )
@@ -32,6 +33,8 @@ def flax_variables(model, *args, seed: int = 0, **kwargs) -> dict:
             return rng.uniform(0.5, 2.0, shape).astype(np.float32)
         if leaf == "mean":
             return rng.normal(0, 0.3, shape).astype(np.float32)
+        if bn_bias is not None and names[-2:] == ["bn", "bias"]:
+            return rng.uniform(*bn_bias, shape).astype(np.float32)
         return rng.normal(0, 0.1, shape).astype(np.float32)  # biases
 
     tree = jax.tree_util.tree_map_with_path(draw, dict(shapes))
@@ -55,3 +58,35 @@ def assert_close_rel(a, b, rel: float) -> None:
     assert a.shape == b.shape, (a.shape, b.shape)
     err, scale = np.abs(a - b).max(), max(np.abs(b).max(), 1e-12)
     assert err <= rel * scale, f"max|diff| {err} > {rel} * max|ref| {scale}"
+
+
+def jax_train_grads(model, variables: dict, batch: dict, max_disp: int):
+    """One training forward and backward of a flax model, as
+    ``ecm_tpu.train.steps.make_train_step`` takes it before the optimizer:
+    (loss, predictions, parameter gradients, new batch statistics), numpy."""
+    from ecm_tpu.train.loss import stereo_loss
+
+    def loss_fn(params):
+        preds, mutated = model.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            jax.numpy.asarray(batch["left"]), jax.numpy.asarray(batch["right"]),
+            train=True, mutable=["batch_stats"],
+        )
+        return stereo_loss(preds, jax.numpy.asarray(batch["disparity"]), max_disp), (preds, mutated["batch_stats"])
+
+    (loss, (preds, stats)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(variables["params"])
+    return float(loss), [np.asarray(p) for p in preds], jax.tree.map(np.asarray, grads), jax.tree.map(np.asarray, stats)
+
+
+def torch_train_grads(model: torch.nn.Module, batch: dict, max_disp: int):
+    """The same for a port model (left in training mode): (loss,
+    predictions, ``{name: grad}``, state_dict after the step)."""
+    from ecm_torch.train.loss import stereo_loss
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    preds = model(t(batch["left"]), t(batch["right"]))
+    loss = stereo_loss(preds, t(batch["disparity"]), max_disp)
+    loss.backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    return loss.item(), [p.detach().numpy() for p in preds], grads, model.state_dict()
