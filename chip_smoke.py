@@ -51,6 +51,7 @@ import dataclasses
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -179,6 +180,22 @@ def device_ms(fn, symbol: str, runs: int = RUNS) -> float:
     return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / runs
 
 
+def ptxas_report(text: str) -> dict:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
+    log, by (mangled) function name."""
+    report, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            report.setdefault(fn, {})
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            report[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            report[fn]["registers"] = int(m.group(1))
+    return report
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -226,33 +243,47 @@ def _pair_inputs(gen, form: str):
 
 
 def check_fused_pair(gen) -> dict:
+    """The pair in its three main-path forms: each on the tensor-core route
+    (``pair_plan``, and the route's launch count), against its plain
+    version; its route, stage-1 recompute factor, blocks and shared memory
+    beside the times."""
     forms = []
     for form in ("dres0", "dres1", "classif3"):
         args, opts = _pair_inputs(gen, form)
+        x, k1, _, _, k2, _, _, ctx = args
+        plan = pairk.pair_plan(x.dtype, *x.shape, k1.shape[0], k2.shape[0])
+        if plan.route != "tensor_cores":
+            raise AssertionError(f"fused_conv3d_pair[{form}] plans the {plan.route} route")
+        before = pairk.fused_conv3d_pair.route_launches["tensor_cores"]
         out = pairk.fused_conv3d_pair(*args, **opts)
         torch.cuda.synchronize()
+        if pairk.fused_conv3d_pair.route_launches["tensor_cores"] != before + 1:
+            raise AssertionError(f"fused_conv3d_pair[{form}] did not launch the tensor-core kernel")
         ref = pairk.fused_conv3d_pair_torch(*args, **opts)
         err = (out.float() - ref.float()).abs().max().item()
         rel = err / ref.float().abs().max().item()
         if not rel <= PAIR_REL_TOL:
             raise AssertionError(f"fused_conv3d_pair[{form}] rel err {rel} > {PAIR_REL_TOL}")
-        x, k1, _, _, k2, _, _, ctx = args
         vox = x.shape[0] * x.shape[1] * x.shape[2] * x.shape[3]
         flops = 2 * 27 * vox * (k1.shape[1] * k1.shape[0] + k2.shape[1] * k2.shape[0])
         bound_ms, by = bound(flops, PEAK_BF16_FLOPS, nbytes(x, ctx, out) + 2 * (k1.numel() + k2.numel()))
         xcf, w1, w2 = x.movedim(-1, 1), k1.bfloat16(), k2.bfloat16()
         forms.append(dict(
-            form=form, max_abs_err=err, rel_err=rel, gflop=flops / 1e9,
+            form=form, route=plan.route, tile=plan.tile, blocks=plan.blocks, smem_bytes=plan.smem_bytes,
+            recompute=plan.recompute, max_abs_err=err, rel_err=rel, gflop=flops / 1e9,
             ms=time_ms(lambda: pairk.fused_conv3d_pair(*args, **opts)),
+            device_ms=device_ms(lambda: pairk.fused_conv3d_pair(*args, **opts), PAIR_MMA),
             plain_ms=time_ms(lambda: pairk.fused_conv3d_pair_torch(*args, **opts)),
             # yardstick: the two cuDNN convolutions alone, without the epilogues
             library_ms=time_ms(lambda: torch.nn.functional.conv3d(
                 torch.nn.functional.conv3d(xcf, w1, padding=1), w2, padding=1)),
             bound_ms=bound_ms, bound_by=by,
         ))
-        log(f"  fused_conv3d_pair[{form}]: rel err {rel:.3e}, {forms[-1]['ms']:.3f} ms "
-            f"(plain {forms[-1]['plain_ms']:.3f}, cuDNN convs {forms[-1]['library_ms']:.3f}, "
-            f"bound {bound_ms:.4f})")
+        f = forms[-1]
+        log(f"  fused_conv3d_pair[{form}]: {plan.route}, tile {plan.tile}, {plan.blocks} blocks, "
+            f"{plan.smem_bytes} B shared, stage-1 recompute {plan.recompute:.3f}; rel err {rel:.3e}, "
+            f"{f['ms']:.3f} ms (device {f['device_ms']:.3f}; plain {f['plain_ms']:.3f}, "
+            f"cuDNN convs {f['library_ms']:.3f}, bound {bound_ms:.4f}, {flops / f['ms'] / 1e9:.1f} TFLOP/s)")
     total = {k: sum(f[k] for f in forms) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return dict(
         name="fused_conv3d_pair", route="cuda", source="ecm_torch/csrc/fused_conv3d_pair.cu",
@@ -602,11 +633,14 @@ def serve(path: str, name: str, overrides: dict, per_forward: dict, batch8: bool
 
 # the port's kernels by symbol, in matching order: the tensor-core GEMM's
 # transposed mode is conv3d_mma_kernel<0, ...>, and deconv3d_bn_kernel
-# contains conv3d_bn_kernel
+# contains conv3d_bn_kernel; the pair's tensor-core kernel is
+# fused_pair_mma_kernel, its CUDA-core kernel fused_pair_kernel
+PAIR_MMA, PAIR_CORES = "fused_pair_mma_kernel", "fused_pair_kernel"
 PORT_SYMBOLS = (
     ("conv3d_mma_kernel<0", "deconv3d_bn"), ("conv3d_mma_kernel", "conv3d_bn"),
     ("deconv3d_bn_kernel", "deconv3d_bn"), ("conv3d_bn_kernel", "conv3d_bn"),
-    ("fused_pair_kernel", "fused_conv3d_pair"), ("concat_kernel", "cost_volume_concat"),
+    (PAIR_MMA, "fused_conv3d_pair"), (PAIR_CORES, "fused_conv3d_pair (CUDA cores)"),
+    ("concat_kernel", "cost_volume_concat"),
     ("upsample_softargmin_kernel", "fused_upsample_softargmin"),
 )
 
@@ -645,6 +679,7 @@ def profile_forward(path: str, overrides: dict, runs: int = 3) -> dict:
     torch.cuda.empty_cache()
     return dict(
         path=path, runs=runs, device_events=len(events),
+        pair_kernels={sym: sum(sym in e.name for e in events) for sym in (PAIR_MMA, PAIR_CORES)},
         wall_ms_per_forward=wall_ms / runs, device_busy_ms_per_forward=busy_us / 1e3 / runs,
         idle_share=1 - busy_us / 1e3 / wall_ms if events else None,
         ms_per_forward_by_group={k: v / runs for k, v in sorted(port.items(), key=lambda kv: -kv[1])},
@@ -825,6 +860,13 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    if "fused_conv3d_pair" in logs:
+        # the tensor-core pair must not spill (one entry per Cout_pad / 8)
+        mma = {fn: r for fn, r in ptxas_report(logs["fused_conv3d_pair"]).items() if PAIR_MMA in fn}
+        for fn, r in mma.items():
+            log(f"  {PAIR_MMA} {fn}: {r}")
+        if len(mma) != 4 or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in mma.values()):
+            raise AssertionError(f"{PAIR_MMA}: ptxas report {mma}")
     log(f"phase build: {len(logs)} kernels compiled in {time.time() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -851,8 +893,15 @@ def main() -> int:
     }
     for path, result in paths.items():
         log(f"phase serving {path} [{card}]: " + json.dumps(result))
-    for path, overrides in (("slice2_grouped", SLICE2_OVERRIDES), ("slice1_standard", SLICE_OVERRIDES)):
-        log(f"phase profile {path} [{card}]: " + json.dumps(profile_forward(path, overrides)))
+    for path, overrides, pairs_per_forward in (
+        ("slice2_grouped", SLICE2_OVERRIDES, 1), ("slice1_standard", SLICE_OVERRIDES, 3),
+    ):
+        prof = profile_forward(path, overrides)
+        log(f"phase profile {path} [{card}]: " + json.dumps(prof))
+        # the paths' pairs run on the tensor cores: the new kernel's symbol
+        # once per launch, the CUDA-core kernel's never
+        if prof["pair_kernels"] != {PAIR_MMA: pairs_per_forward * prof["runs"], PAIR_CORES: 0}:
+            raise AssertionError(f"{path}: pair kernels in the profile {prof['pair_kernels']}")
     trained = train(card)
     log(f"phase train {TRAIN_SLICE} [{card}]: " + json.dumps(trained))
     paths["train_sceneflow_single"] = trained

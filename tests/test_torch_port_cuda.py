@@ -14,7 +14,7 @@ from ecm_torch.ops.cuda_cost_volume import (
     cost_volume_correlation,
     cost_volume_correlation_torch,
 )
-from ecm_torch.ops.cuda_fused_agg import fused_conv3d_pair, fused_conv3d_pair_torch
+from ecm_torch.ops.cuda_fused_agg import fused_conv3d_pair, fused_conv3d_pair_torch, pair_route
 from ecm_torch.ops.cuda_gband import (
     conv3d_bn_down,
     conv3d_bn_s1,
@@ -51,21 +51,45 @@ def test_cost_volume_kernel(dev, dtype, c):
     assert torch.equal(out, cost_volume_concat_torch(fl, fr, 12))
 
 
-@pytest.mark.parametrize("form", ["ctx", "residual", "classif", "odd"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# (Cin, Cm, Cout) and shape [B, D, H, W]: the small forms and the odd one on
+# the CUDA cores; the main paths' three forms (tc_*) on the tensor cores, at
+# a shape that crosses every (H, W) tile edge (8 x 16) and D slab (19 -> 2 x 10)
+PAIR_FORMS = {
+    "ctx": ((16, 8, 8), (2, 6, 10, 19)),
+    "residual": ((8, 8, 8), (2, 6, 10, 19)),
+    "classif": ((8, 8, 1), (2, 6, 10, 19)),
+    "odd": ((6, 5, 3), (2, 6, 10, 19)),
+    "tc_ctx": ((64, 32, 32), (2, 19, 11, 37)),
+    "tc_residual": ((32, 32, 32), (2, 19, 11, 37)),
+    "tc_classif": ((32, 32, 1), (2, 19, 11, 37)),
+}
+
+
+@pytest.mark.parametrize(
+    "form,dtype",
+    [pytest.param(f, dt, id=f"dtype{i}-{f}")
+     for i, dt in enumerate((torch.float32, torch.bfloat16)) for f in ("ctx", "residual", "classif", "odd")]
+    + [pytest.param(f, torch.bfloat16, id=f"dtype1-{f}") for f in ("tc_ctx", "tc_residual", "tc_classif")],
+)
 def test_fused_pair_kernel(dev, form, dtype):
     g = torch.Generator().manual_seed(1)
-    cin, cm, cout = {"ctx": (16, 8, 8), "residual": (8, 8, 8), "classif": (8, 8, 1), "odd": (6, 5, 3)}[form]
-    x = torch.randn(2, 6, 10, 19, cin, generator=g).to(dev, dtype)
+    (cin, cm, cout), (b, d, h, w) = PAIR_FORMS[form]
+    kind = form.removeprefix("tc_")
+    x = torch.randn(b, d, h, w, cin, generator=g).to(dev, dtype)
     k1 = torch.randn(cm, cin, 3, 3, 3, generator=g) * 0.2
     k2 = torch.randn(cout, cm, 3, 3, 3, generator=g) * 0.2
     s1, b1 = torch.rand(cm, generator=g) + 0.5, torch.randn(cm, generator=g)
     s2, b2 = torch.rand(cout, generator=g) + 0.5, torch.randn(cout, generator=g)
-    ctx = torch.randn(2, 10, 19, cout, generator=g).to(dev, dtype) if form == "ctx" else None
-    opts = {"residual": {"relu2": False, "residual": True}, "classif": {"relu2": False}}.get(form, {})
+    ctx = torch.randn(b, h, w, cout, generator=g).to(dev, dtype) if kind == "ctx" else None
+    opts = {"residual": {"relu2": False, "residual": True}, "classif": {"relu2": False}}.get(kind, {})
     args = [v.to(dev) for v in (x, k1, s1, b1, k2, s2, b2)]
+    route = "tensor_cores" if form.startswith("tc_") else "cuda_cores"
+    assert pair_route(dtype, cin, cm, cout) == route
+    n, by_route = fused_conv3d_pair.launches, dict(fused_conv3d_pair.route_launches)
     out = fused_conv3d_pair(*args, ctx, **opts)
     torch.cuda.synchronize()
+    assert fused_conv3d_pair.launches == n + 1
+    assert fused_conv3d_pair.route_launches[route] == by_route[route] + 1
     ref = fused_conv3d_pair_torch(*args, ctx, **opts)
     err = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
     assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-5), err
