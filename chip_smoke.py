@@ -8,7 +8,10 @@
    serving kernels; B=4, 256x512, max-disp 192 for ``gband_conv_s1``,
    forward and input gradient), timing the kernel, the plain version and,
    where one exists, one cuDNN call of the same function with CUDA events
-   (median of 10 runs).
+   (median of 10 runs); for the conv core (``csrc/conv_wgmma.cuh``) also the
+   kernel's and cuDNN's device time (torch.profiler) and the plan
+   (``cuda_gband.conv_plan``). The build fails on a ptxas spill in any
+   instantiation of the conv core or of the pair's tensor-core kernel.
 2. Serves ``CONFIGS["kitti_infer"].model.build(...)`` at full width (seeded
    random weights) along four paths, each with every launch count set to 0
    just before it and read just after:
@@ -29,7 +32,9 @@
    (``correlation_witness``).
 3. Profiles a steady window of batch-1 forwards of each ECMStereo path with
    ``torch.profiler``: device time per kernel, the port's kernels against
-   the rest, and the device's idle share of the window.
+   the rest, and the device's idle share of the window; the grouped path
+   must run the conv core 10 times a forward (4 s1 + 3 down + 3
+   transposed) and the WMMA core it replaced never.
 4. Trains ``CONFIGS["sceneflow_single"]`` (slice 3, ``TRAIN_SLICE``): 4
    pairs at 256x512, max-disp 192, bf16, the grouped dispatch, through
    ``train_loop`` on one fixed synthetic batch, counts 0 just before and
@@ -180,6 +185,21 @@ def device_ms(fn, symbol: str, runs: int = RUNS) -> float:
     return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / runs
 
 
+def device_total_ms(fn, runs: int = RUNS) -> float:
+    """Mean device time of everything ``fn`` runs on the card per call
+    (torch.profiler, all kernels and copies): for a library call that may
+    launch more than one kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in device_events(prof)) / 1e3 / runs
+
+
 def ptxas_report(text: str) -> dict:
     """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
     log, by (mangled) function name."""
@@ -323,10 +343,15 @@ def _bn(gen, c):
 def check_forms(name, source, replaces, forms) -> dict:
     """Hold a kernel against its plain version in each form; time the
     kernel, the plain version and the cuDNN yardstick (which the port never
-    calls on its kernel path). ``forms``: (form, kernel, plain, library,
-    ops, bytes)."""
+    calls on its kernel path) with CUDA events, and the kernel's and cuDNN's
+    device time with torch.profiler (the kernel's symbol; all of cuDNN's
+    device events). ``forms``: (form, kernel, plain, library, ops, bytes,
+    plan); a form with a ``conv_plan`` must plan the tensor-core route and
+    launch ``CONV_WGMMA``."""
     rows = []
-    for form, kern, plain, lib, ops, moved in forms:
+    for form, kern, plain, lib, ops, moved, plan in forms:
+        if plan is not None and plan.route != "tensor_cores":
+            raise AssertionError(f"{name}[{form}] plans the {plan.route} route")
         out = kern()
         torch.cuda.synchronize()
         ref = plain()
@@ -337,12 +362,14 @@ def check_forms(name, source, replaces, forms) -> dict:
         bound_ms, by = bound(ops, PEAK_BF16_FLOPS, moved + nbytes(out))
         rows.append(dict(
             form=form, max_abs_err=err, rel_err=rel, gflop=ops / 1e9, mbytes=(moved + nbytes(out)) / 1e6,
-            ms=time_ms(kern), plain_ms=time_ms(plain), library_ms=time_ms(lib),
-            bound_ms=bound_ms, bound_by=by,
+            ms=time_ms(kern), device_ms=device_ms(kern, CONV_WGMMA) if plan is not None else None,
+            plain_ms=time_ms(plain), library_ms=time_ms(lib), library_device_ms=device_total_ms(lib),
+            bound_ms=bound_ms, bound_by=by, plan=None if plan is None else plan._asdict(),
         ))
         r = rows[-1]
-        log(f"  {name}[{form}]: rel err {rel:.3e}, {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
-            f"cuDNN {r['library_ms']:.3f}, bound {bound_ms:.4f} {by})")
+        log(f"  {name}[{form}]: rel err {rel:.3e}, {r['ms']:.3f} ms (device {r['device_ms']}; plain "
+            f"{r['plain_ms']:.3f}, cuDNN {r['library_ms']:.3f}, device {r['library_device_ms']:.3f}; "
+            f"ratio {r['ms'] / r['library_ms']:.2f} by events; bound {bound_ms:.4f} {by}; plan {r['plan']})")
     total = {k: sum(f[k] for f in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
@@ -350,6 +377,11 @@ def check_forms(name, source, replaces, forms) -> dict:
         bound_by="operations" if all(f["bound_by"] == "operations" for f in rows) else "bytes",
         forms=rows, **total,
     )
+
+
+def conv_plan(mode: str, x: torch.Tensor, cout: int):
+    """The plan the conv wrappers launch for x and cout on this card."""
+    return gbk.conv_plan(mode, x.dtype, *x.shape, cout, torch.cuda.get_device_properties(0).multi_processor_count)
 
 
 def check_conv3d_bn_s1(gen) -> dict:
@@ -371,7 +403,7 @@ def check_conv3d_bn_s1(gen) -> dict:
             lambda x=x, w=w, s=s, b=b, a=a, relu=relu: gbk.conv3d_bn_s1(x, w, s, b, a, relu=relu),
             lambda x=x, w=w, s=s, b=b, a=a, relu=relu: gbk.conv3d_bn_torch(x, w, s, b, a, relu=relu),
             lambda xcf=xcf, wb=wb: F.conv3d(xcf, wb, padding=1),
-            2 * 27 * vox * cin * C, nbytes(x, a) + 2 * w.numel(),
+            2 * 27 * vox * cin * C, nbytes(x, a) + 2 * w.numel(), conv_plan("s1", x, C),
         ))
     return check_forms(
         "conv3d_bn_s1", "ecm_torch/csrc/conv3d_bn.cu", "ecm_tpu/ops/pallas_gband.py:213", forms
@@ -390,7 +422,7 @@ def check_conv3d_bn_down(gen) -> dict:
         lambda: gbk.conv3d_bn_down(x, w, s, b),
         lambda: gbk.conv3d_bn_torch(x, w, s, b, stride=2),
         lambda: F.conv3d(xcf, wb, stride=2, padding=1),
-        2 * 27 * out_vox * C * 2 * C, nbytes(x) + 2 * w.numel(),
+        2 * 27 * out_vox * C * 2 * C, nbytes(x) + 2 * w.numel(), conv_plan("s2", x, 2 * C),
     )
     return check_forms(
         "conv3d_bn_down", "ecm_torch/csrc/conv3d_bn.cu", "ecm_tpu/ops/pallas_gband.py:620", [form]
@@ -412,7 +444,7 @@ def check_deconv3d_bn(gen) -> dict:
         lambda: gdk.deconv3d_bn(x, w, s, b, a),
         lambda: gdk.deconv3d_bn_torch(x, w, s, b, a),
         lambda: F.conv_transpose3d(xcf, wb, stride=2, padding=1, output_padding=1),
-        2 * B * taps * 2 * C * C, nbytes(x, a) + 2 * w.numel(),
+        2 * B * taps * 2 * C * C, nbytes(x, a) + 2 * w.numel(), conv_plan("transposed", x, C),
     )
     return check_forms(
         "deconv3d_bn", "ecm_torch/csrc/deconv3d_bn.cu", "ecm_tpu/ops/pallas_gdeconv.py:213", [form]
@@ -500,14 +532,14 @@ def check_gband_conv_s1(gen) -> dict:
             f"forward {cin}->{C}", fwd,
             lambda x=x, wt=wt: gbk.gband_conv_s1_torch(x, wt),
             lambda xcf=xcf, wb=wb: F.conv3d(xcf, wb, padding=1),
-            2 * 27 * vox * cin * C, nbytes(x) + 2 * wt.numel(),
+            2 * 27 * vox * cin * C, nbytes(x) + 2 * wt.numel(), conv_plan("s1", x, C),
         ))
         forms.append((
             f"input grad {C}->{cin}",
             lambda dy=dy, wt=wt: gbk.gband_conv_s1_input_grad(dy, wt.bfloat16()),
             lambda dy=dy, wt=wt: gbk.gband_conv_s1_torch(dy, wt.flip(2, 3, 4).transpose(0, 1)),
             lambda xcf=xcf, wb=wb, dycf=dycf: torch.nn.grad.conv3d_input(xcf.shape, wb, dycf, padding=1),
-            2 * 27 * vox * cin * C, nbytes(dy) + 2 * wt.numel(),
+            2 * 27 * vox * cin * C, nbytes(dy) + 2 * wt.numel(), conv_plan("s1", dy, cin),
         ))
         wgrad[f"{cin}->{C}"] = time_ms(lambda xcf=xcf, wb=wb, dycf=dycf: torch.ops.aten.convolution_backward(
             dycf, xcf, wb, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1, [False, True, False]))
@@ -631,13 +663,17 @@ def serve(path: str, name: str, overrides: dict, per_forward: dict, batch8: bool
     return result
 
 
-# the port's kernels by symbol, in matching order: the tensor-core GEMM's
-# transposed mode is conv3d_mma_kernel<0, ...>, and deconv3d_bn_kernel
+# the port's kernels by symbol, in matching order: the conv core's
+# transposed mode is conv3d_wgmma_kernel<0, ...>, and deconv3d_bn_kernel
 # contains conv3d_bn_kernel; the pair's tensor-core kernel is
-# fused_pair_mma_kernel, its CUDA-core kernel fused_pair_kernel
+# fused_pair_mma_kernel, its CUDA-core kernel fused_pair_kernel.
+# OLD_CONV_MMA is the WMMA core that conv_wgmma.cuh replaced: no profile may
+# hold it.
 PAIR_MMA, PAIR_CORES = "fused_pair_mma_kernel", "fused_pair_kernel"
+CONV_WGMMA, OLD_CONV_MMA = "conv3d_wgmma_kernel", "conv3d_mma_kernel"
+CONV_INSTANTIATIONS = {"conv3d_bn": 6, "deconv3d_bn": 3}  # (modes) x Cout_pad 16, 32, 64
 PORT_SYMBOLS = (
-    ("conv3d_mma_kernel<0", "deconv3d_bn"), ("conv3d_mma_kernel", "conv3d_bn"),
+    (f"{CONV_WGMMA}<0", "deconv3d_bn"), (CONV_WGMMA, "conv3d_bn"),
     ("deconv3d_bn_kernel", "deconv3d_bn"), ("conv3d_bn_kernel", "conv3d_bn"),
     (PAIR_MMA, "fused_conv3d_pair"), (PAIR_CORES, "fused_conv3d_pair (CUDA cores)"),
     ("concat_kernel", "cost_volume_concat"),
@@ -680,6 +716,7 @@ def profile_forward(path: str, overrides: dict, runs: int = 3) -> dict:
     return dict(
         path=path, runs=runs, device_events=len(events),
         pair_kernels={sym: sum(sym in e.name for e in events) for sym in (PAIR_MMA, PAIR_CORES)},
+        conv_kernels={sym: sum(sym in e.name for e in events) for sym in (CONV_WGMMA, OLD_CONV_MMA)},
         wall_ms_per_forward=wall_ms / runs, device_busy_ms_per_forward=busy_us / 1e3 / runs,
         idle_share=1 - busy_us / 1e3 / wall_ms if events else None,
         ms_per_forward_by_group={k: v / runs for k, v in sorted(port.items(), key=lambda kv: -kv[1])},
@@ -775,7 +812,7 @@ def profile_train_step(state, step, batch) -> dict:
     for e in events:
         ms = (e.time_range.end - e.time_range.start) / 1e3
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
-        if "conv3d_mma_kernel<1" in e.name:
+        if f"{CONV_WGMMA}<1" in e.name:
             label = "gband_conv_s1 forward" if gband < 7 else "gband_conv_s1 input grad"
             gband += 1
         elif "wgrad" in e.name.lower():
@@ -860,6 +897,15 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    for src, count in CONV_INSTANTIATIONS.items():
+        if src not in logs:
+            continue
+        # every instantiation of the conv core: none may spill
+        core = {fn: r for fn, r in ptxas_report(logs[src]).items() if CONV_WGMMA in fn}
+        for fn, r in core.items():
+            log(f"  {CONV_WGMMA} {fn}: {r}")
+        if len(core) != count or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in core.values()):
+            raise AssertionError(f"{CONV_WGMMA} in {src}: ptxas report {core}")
     if "fused_conv3d_pair" in logs:
         # the tensor-core pair must not spill (one entry per Cout_pad / 8)
         mma = {fn: r for fn, r in ptxas_report(logs["fused_conv3d_pair"]).items() if PAIR_MMA in fn}
@@ -902,6 +948,10 @@ def main() -> int:
         # once per launch, the CUDA-core kernel's never
         if prof["pair_kernels"] != {PAIR_MMA: pairs_per_forward * prof["runs"], PAIR_CORES: 0}:
             raise AssertionError(f"{path}: pair kernels in the profile {prof['pair_kernels']}")
+        # the grouped path's convs run the conv core: 4 s1 + 3 down + 3 transposed
+        convs = 10 if path == "slice2_grouped" else 0
+        if prof["conv_kernels"] != {CONV_WGMMA: convs * prof["runs"], OLD_CONV_MMA: 0}:
+            raise AssertionError(f"{path}: conv kernels in the profile {prof['conv_kernels']}")
     trained = train(card)
     log(f"phase train {TRAIN_SLICE} [{card}]: " + json.dumps(trained))
     paths["train_sceneflow_single"] = trained

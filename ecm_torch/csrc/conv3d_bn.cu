@@ -19,19 +19,19 @@
 // bound by bytes on the tensor cores (0.034 ms) but by arithmetic on the
 // CUDA cores (0.30 ms at 67 TFLOP/s f32).
 //
-// Design (simple and right first; wgmma, TMA and a deeper pipeline come
-// later). Two kernels behind one function:
+// Two kernels behind one function:
 //
-// - bf16 with Cin a multiple of 8 (every row of x is whole 16-byte chunks):
-//   the implicit GEMM on the tensor cores of conv_mma.cuh (WMMA, f32
-//   accumulation, 64 voxels x 32 or 64 channels a block).
+// - bf16 with Cin a multiple of 8, up to 64, and Cout up to 64: the implicit
+//   GEMM on the tensor cores of conv_wgmma.cuh (persistent blocks, weights
+//   resident in shared memory, a ring of halo planes filled by a producer
+//   warp, wgmma with A from registers), tiled by the wrapper's conv_plan.
 // - otherwise (f32, or an odd Cin): a direct convolution on the CUDA cores.
 //   One thread computes VX neighbouring output voxels along W and a strip of
 //   CO output channels in f32 registers. All threads of a block share one
 //   channel strip (blockIdx.y), so each weight row is one broadcast read
 //   through the read-only cache and feeds VX FMAs per channel.
 
-#include "conv_mma.cuh"
+#include "conv_wgmma.cuh"
 
 namespace {
 
@@ -147,17 +147,21 @@ extern "C" int ecm_conv3d_bn(int dtype, int stride, const void* x, const void* w
   return stride == 1 ? launch<float, 1>(P, s) : launch<float, 2>(P, s);
 }
 
-// The tensor-core kernel: x, add and out bf16 with Cin % 8 == 0. w is bf16
-// [27][Cin_pad][Cout_pad] with Cin_pad = Cin rounded up to 32 and Cout_pad =
-// Cout rounded up to 32 (Cout <= 32) or to 64, zero in the pads; scale/bias
-// f32 [Cout]. add may be null; add_d is its D extent (1 or Do). All pointers
-// are 16-byte aligned.
+// The tensor-core kernel: x, add and out bf16 with Cin % 8 == 0, Cin <= 64,
+// Cout <= 64. w is bf16 [27][Cin_pad / 16][Cout_pad / 8][2][8][8] (element
+// (tap, ci, co) at ((tap * Cin_pad / 16 + ci / 16) * Cout_pad / 8 + co / 8) *
+// 128 + (ci % 16) / 8 * 64 + (co % 8) * 8 + ci % 8) with Cin_pad = Cin rounded
+// up to 16 and Cout_pad = 16, 32 or 64, zero in the pads; scale/bias f32
+// [Cout]. add may be null; add_d is its D extent (1 or Do). sd (output
+// planes per work item), ring (slots), grid (blocks) and smem (bytes) are
+// the wrapper's plan; the launch fails if smem is not the plan's. All
+// pointers are 16-byte aligned.
 extern "C" int ecm_conv3d_bn_mma(int stride, const void* x, const void* w, const void* scale,
                                  const void* bias, const void* add, void* out, int B, int D,
-                                 int H, int W, int Cin, int Cout, int add_d, int relu,
-                                 void* stream) {
+                                 int H, int W, int Cin, int Cout, int add_d, int relu, int sd,
+                                 int ring, int grid, long long smem, void* stream) {
   if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
-  ecm::mma::Params P;
+  ecm::wg::Params P;
   P.x = static_cast<const __nv_bfloat16*>(x);
   P.w = static_cast<const __nv_bfloat16*>(w);
   P.scale = static_cast<const float*>(scale);
@@ -171,5 +175,6 @@ extern "C" int ecm_conv3d_bn_mma(int stride, const void* x, const void* w, const
   P.add_d = add_d;
   P.relu = relu;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return stride == 1 ? ecm::mma::launch<1>(P, s) : ecm::mma::launch<2>(P, s);
+  return stride == 1 ? ecm::wg::launch<1>(P, sd, ring, grid, smem, s)
+                     : ecm::wg::launch<2>(P, sd, ring, grid, smem, s);
 }

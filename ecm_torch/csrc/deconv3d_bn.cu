@@ -22,19 +22,19 @@
 // from 24x48x156 to 48x96x312 with the residual): 19.9 GFLOP against 207 MB,
 // bound by bytes (0.062 ms).
 //
-// Design (simple and right first; wgmma and TMA come later). Two kernels
-// behind one function:
+// Two kernels behind one function:
 //
-// - bf16 with Cin a multiple of 8: the implicit GEMM on the tensor cores of
-//   conv_mma.cuh in its transposed mode (a block is 64 output voxels of one
-//   W parity; K runs over that parity class's legal taps only).
+// - bf16 with Cin a multiple of 8, up to 64, and Cout up to 64: the implicit
+//   GEMM on the tensor cores of conv_wgmma.cuh in its transposed mode (a
+//   block takes an input tile with a halo of one and writes all eight parity
+//   classes of its outputs, each over that class's legal taps only).
 // - otherwise (f32, or an odd Cin): a gather on the CUDA cores. One thread
 //   computes VX output voxels of one W parity (ow = 2m + pw for VX
 //   consecutive m), which share their tap pattern, and a strip of CO output
 //   channels in f32 registers; all threads of a block share the strip, so
 //   each weight row is a broadcast read feeding VX FMAs per channel.
 
-#include "conv_mma.cuh"
+#include "conv_wgmma.cuh"
 
 namespace {
 
@@ -158,15 +158,16 @@ extern "C" int ecm_deconv3d_bn(int dtype, const void* x, const void* w, const vo
   return dtype == 1 ? launch<__nv_bfloat16>(P, s) : launch<float>(P, s);
 }
 
-// The tensor-core kernel: x, add and out bf16 with Cin % 8 == 0. w is bf16
-// [27][Cin_pad][Cout_pad] (tap as above, scale folded in) with Cin_pad = Cin
-// rounded up to 32 and Cout_pad = Cout rounded up to 32 (Cout <= 32) or to
-// 64, zero in the pads; bias is f32 [Cout]. add may be null. All pointers are
-// 16-byte aligned.
+// The tensor-core kernel: x, add and out bf16 with Cin % 8 == 0, Cin <= 64,
+// Cout <= 64. w is packed as ecm_conv3d_bn_mma's (tap as above, scale folded
+// in); bias is f32 [Cout]. add may be null. sd (input planes per work item),
+// ring, grid and smem are the wrapper's plan. All pointers are 16-byte
+// aligned.
 extern "C" int ecm_deconv3d_bn_mma(const void* x, const void* w, const void* bias,
                                    const void* add, void* out, int B, int D, int H, int W,
-                                   int Cin, int Cout, int relu, void* stream) {
-  ecm::mma::Params P;
+                                   int Cin, int Cout, int relu, int sd, int ring, int grid,
+                                   long long smem, void* stream) {
+  ecm::wg::Params P;
   P.x = static_cast<const __nv_bfloat16*>(x);
   P.w = static_cast<const __nv_bfloat16*>(w);
   P.scale = nullptr;
@@ -179,5 +180,6 @@ extern "C" int ecm_deconv3d_bn_mma(const void* x, const void* w, const void* bia
   P.Wo = 2 * W;
   P.add_d = 2 * D;
   P.relu = relu;
-  return ecm::mma::launch<ecm::mma::kTransposed>(P, static_cast<cudaStream_t>(stream));
+  return ecm::wg::launch<ecm::wg::kTransposed>(P, sd, ring, grid, smem,
+                                               static_cast<cudaStream_t>(stream));
 }

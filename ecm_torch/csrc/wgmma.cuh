@@ -1,0 +1,141 @@
+// Hopper's warpgroup tensor-core and barrier instructions as small device
+// functions (header only, sm_90a): wgmma.mma_async with both operands in
+// shared memory through matrix descriptors, its fence / commit / wait, the
+// shared-memory mbarrier, and cp.async's arrival on an mbarrier.
+//
+// wgmma_ss<N>: d (64 x N, f32) = A (64 x 16, bf16) * B (16 x N, bf16)
+// [+ d if acc], for one warpgroup of four warps. Warp i of the warpgroup holds
+// rows 16 i .. 16 i + 15 of d; per warp (g = lane / 4, t = lane % 4):
+//   d[4j + 0..1] (row g, cols 8j + 2t, 8j + 2t + 1), d[4j + 2..3] (row g + 8,
+//   the same cols), j < N / 8.
+// A and B are K-major, no swizzle: 8 x 8 core matrices of 8 rows (A: M rows,
+// B: N columns) x 16 bytes (8 k) each, the 8 rows of a core matrix 16 bytes
+// apart (128 contiguous bytes). Element (r, k) of an operand lies at
+//   start + (r / 8) * SBO + (k / 8) * LBO + (r % 8) * 16 + (k % 8) * 2
+// and its descriptor holds start >> 4 (bits 0-13), LBO >> 4 (the leading byte
+// offset, bits 16-29: to the next core matrix along K) and SBO >> 4 (the
+// stride byte offset, bits 32-45: to the next 8 rows); layout type 0.
+// A wgmma writes d asynchronously: d may be read only after a wgmma_wait has
+// retired its group, and shared memory it reads may be overwritten only then.
+
+#pragma once
+
+#include <cstdint>
+
+#include "mma_sync.cuh"
+
+namespace ecm {
+namespace ptx {
+
+__device__ __forceinline__ uint64_t wgmma_desc(const void* smem, unsigned lbo, unsigned sbo) {
+  return (uint64_t)((smem_addr(smem) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N of the warpgroup's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accesses of an accumulator across a wgmma
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// ---- mbarrier (shared memory, one CTA) ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// make the initialised barriers visible before any thread uses them
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity (the loop
+// is inside one asm statement, so the compiler sees no divergent branch)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one arrival on bar once every cp.async this thread issued before has
+// landed (the barrier's expected count includes it: .noinc)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// order generic-proxy writes of shared memory (st, cp.async) before the
+// async-proxy reads of wgmma
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+}  // namespace ptx
+}  // namespace ecm

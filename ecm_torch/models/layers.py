@@ -148,9 +148,24 @@ class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
 
 
 def fold_bn(bn: nn.modules.batchnorm._BatchNorm) -> tuple[torch.Tensor, torch.Tensor]:
-    """Inference-fold a BatchNorm into per-channel f32 (scale, bias)."""
-    scale = bn.weight / torch.sqrt(bn.running_var + BN_EPS)
-    return scale, bn.bias - bn.running_mean * scale
+    """Inference-fold a BatchNorm into per-channel f32 (scale, bias). Where
+    no gradient is recorded (the eval kernels' path) the fold is kept on the
+    module and made again only when one of its four tensors moves or changes
+    version, so a served model folds once and the kernels' packed weights,
+    cached with the scale, stay valid."""
+    tensors = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
+    if torch.is_grad_enabled():
+        return _fold_bn(*tensors)
+    key = (tuple((t.data_ptr(), t._version) for t in tensors), torch.is_inference_mode_enabled())
+    kept = bn.__dict__.get("_folded")
+    if kept is None or kept[0] != key:
+        kept = bn.__dict__["_folded"] = (key, *_fold_bn(*tensors))
+    return kept[1], kept[2]
+
+
+def _fold_bn(weight, bias, mean, var) -> tuple[torch.Tensor, torch.Tensor]:
+    scale = weight / torch.sqrt(var + BN_EPS)
+    return scale, bias - mean * scale
 
 
 class ConvBN(nn.Module):

@@ -12,8 +12,11 @@ to x's dtype; scale/bias ``[Cout]`` (folded BN), applied in f32; ``add``
 context map ``[B, 1, H, W, Cout]`` broadcast over D, added in f32. Returns
 ``[B, Do, Ho, Wo, Cout]`` in x's dtype, ``Do = (D - 1) // stride + 1``.
 
-On the card, bf16 with Cin a multiple of 8 runs on the tensor cores (an
-implicit GEMM, f32 accumulation); f32, or another Cin, on the CUDA cores.
+On the card, bf16 with Cin a multiple of 8 (up to 64) and Cout up to 64 runs
+on the tensor cores (``csrc/conv_wgmma.cuh``: persistent blocks with the
+weights resident in shared memory, wgmma, f32 accumulation), tiled by
+:func:`conv_plan`; f32, or another Cin, on the CUDA cores. Packed weights are
+cached per weight tensor and version (:func:`cached_pack`).
 
 :func:`gband_conv_s1` is the training path's differentiable conv (replaces
 ``ecm_tpu/ops/pallas_gband.py::gband_conv_s1`` and its custom VJP): the
@@ -25,15 +28,146 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ecm_torch.kernels.build import check, library
 
 _CO = 16  # output channels per thread of the CUDA-core kernel: weights are padded to it
-_KC = 32  # input channels per stage of the tensor-core kernel: weights are padded to it
+_VX = 4  # output voxels per thread of the CUDA-core kernel
+SMEM_PER_BLOCK = 232_448  # dynamic shared memory an H100 block may have
+H100_SMS = 132
+# the tensor-core core (csrc/conv_wgmma.cuh): mbarriers ahead of the weights,
+# at most _MAX_RING ring slots; a work item's (H, W) tile by mode (outputs;
+# inputs for "transposed") and the input planes one step reads
+_BAR_BYTES = 128
+_MAX_RING = 8
+_TILE = {"s1": (2, 64), "s2": (1, 64), "transposed": (2, 64)}
+_NEED = {"s1": 3, "s2": 3, "transposed": 2}
+
+
+class ConvPlan(NamedTuple):
+    """How one call of the conv kernels runs. ``route``: "tensor_cores" or
+    "cuda_cores". Tensor cores: a work item is a ``tile`` (H, W) of outputs
+    (of inputs for "transposed") and ``sd`` steps along D (output planes; input
+    planes for "transposed"); ``blocks`` persistent blocks of ``threads`` walk
+    the ``items``, each with ``smem_bytes`` of shared memory: the weights
+    (``cin_pad`` x ``cout_pad`` x 27 bf16) and a ``ring`` of input planes.
+    CUDA cores: one thread per 4 output voxels and 16 channels."""
+
+    route: str
+    tile: tuple[int, int]
+    sd: int
+    ring: int
+    items: int
+    blocks: int
+    threads: int
+    smem_bytes: int
+    cin_pad: int
+    cout_pad: int
+
+
+def _cout_pad(cout: int) -> int:
+    return 16 if cout <= 16 else 32 if cout <= 32 else 64
+
+
+def _halo_rows(mode: str, th: int, tw: int) -> int:
+    """Input rows of one ring slot: the tile and its halo."""
+    if mode == "s1":
+        return (th + 2) * (tw + 2)
+    if mode == "s2":
+        return (2 * th + 1) * (2 * tw + 1)
+    return (th + 1) * (tw + 1)
+
+
+def _smem(mode: str, cin_pad: int, cout_pad: int, ring: int) -> int:
+    rows = _halo_rows(mode, *_TILE[mode])
+    return _BAR_BYTES + 27 * cin_pad * cout_pad * 2 + ring * rows * cin_pad * 2
+
+
+def conv_route(mode: str, dtype: torch.dtype, cin: int, cout: int) -> str:
+    """``"tensor_cores"`` for bf16 with Cin % 8 == 0, Cin <= 64 and Cout <=
+    64 where the weights and the smallest ring fit in a block's shared
+    memory; else ``"cuda_cores"``."""
+    if dtype != torch.bfloat16 or cin % 8 or cin > 64 or not 1 <= cout <= 64:
+        return "cuda_cores"
+    cin_pad = -(-cin // 16) * 16
+    if _smem(mode, cin_pad, _cout_pad(cout), _NEED[mode]) > SMEM_PER_BLOCK:
+        return "cuda_cores"
+    return "tensor_cores"
+
+
+@functools.lru_cache(maxsize=256)
+def conv_plan(
+    mode: str, dtype: torch.dtype, b: int, d: int, h: int, w: int, cin: int, cout: int,
+    sms: int = H100_SMS,
+) -> ConvPlan:
+    """The route and tiling of one conv kernel call: ``mode`` "s1", "s2"
+    (stride 2) or "transposed", x ``[b, d, h, w, cin]``. The ring takes as
+    many slots as fit, up to two more than one step reads; the D slab ``sd``
+    minimises the rounds of ``blocks`` (at most one per SM) times the planes
+    an item computes (plus one for its pipeline fill)."""
+    if mode not in _TILE:
+        raise ValueError(f"mode {mode!r} is not one of {sorted(_TILE)}")
+    route = conv_route(mode, dtype, cin, cout)
+    if mode == "s2":
+        do, ho, wo = (d - 1) // 2 + 1, (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    elif mode == "s1":
+        do, ho, wo = d, h, w
+    else:
+        do, ho, wo = 2 * d, 2 * h, 2 * w
+    if route == "cuda_cores":
+        groups = b * do * ho * -(-wo // _VX)
+        blocks = -(-groups // 128) * -(-cout // _CO)
+        return ConvPlan(route, (1, _VX), 1, 0, blocks, blocks, 128, 0, cin, -(-cout // _CO) * _CO)
+    th, tw = _TILE[mode]
+    steps, tiled = (d, (h, w)) if mode == "transposed" else (do, (ho, wo))
+    tiles = b * -(-tiled[0] // th) * -(-tiled[1] // tw)
+    best = None
+    for sd in sorted({-(-steps // n) for n in range(1, steps + 1)}, reverse=True):
+        items = tiles * -(-steps // sd)
+        blocks = min(items, sms)
+        cost = -(-items // blocks) * (sd + 1)
+        if best is None or cost < best[0]:
+            best = (cost, sd, items, blocks)
+    _, sd, items, blocks = best
+    cin_pad, cout_pad = -(-cin // 16) * 16, _cout_pad(cout)
+    ring = max(r for r in range(_NEED[mode], min(_NEED[mode] + 2, _MAX_RING) + 1)
+               if _smem(mode, cin_pad, cout_pad, r) <= SMEM_PER_BLOCK)
+    return ConvPlan(route, (th, tw), sd, ring, items, blocks, 128 * (th + 1),
+                    _smem(mode, cin_pad, cout_pad, ring), cin_pad, cout_pad)
+
+
+_PACKED = WeakIdKeyDictionary()
+
+
+def _stamp(t: torch.Tensor) -> tuple:
+    """Address and version of t (an inference tensor, which keeps no
+    version, is known by its address and identity alone)."""
+    return t.data_ptr(), None if t.is_inference() else t._version
+
+
+def cached_pack(weight: torch.Tensor, variant: str, make, scale: torch.Tensor | None = None):
+    """``make()``, the packed form ``variant`` of ``weight`` (and of
+    ``scale``, where the pack folds one in), made once per version: the
+    cache is keyed by the weight tensor itself (held weakly), its
+    ``data_ptr()`` and ``_version``, and the scale's identity and version. An
+    in-place update (an optimizer step, ``load_state_dict``) repacks; a
+    served model packs once."""
+    stamp = (weight.device, _stamp(weight), None if scale is None else _stamp(scale))
+    entries = _PACKED.get(weight)
+    if entries is None:
+        entries = _PACKED[weight] = {}
+    hit = entries.get(variant)
+    if hit is not None and hit[0] == stamp and hit[1] is scale:
+        return hit[2]
+    packed = make()
+    entries[variant] = (stamp, scale, packed)
+    return packed
 
 
 def pack_taps(k: torch.Tensor, dtype: torch.dtype, pad_to: int) -> torch.Tensor:
@@ -80,7 +214,7 @@ def _kernel(tensor_cores: bool):
     vp, i = ctypes.c_void_p, ctypes.c_int
     if tensor_cores:
         fn = library("conv3d_bn").ecm_conv3d_bn_mma
-        fn.argtypes = [i] + [vp] * 6 + [i] * 8 + [vp]
+        fn.argtypes = [i] + [vp] * 6 + [i] * 11 + [ctypes.c_longlong, vp]
     else:
         fn = library("conv3d_bn").ecm_conv3d_bn
         fn.argtypes = [i, i] + [vp] * 6 + [i] * 8 + [vp]
@@ -88,17 +222,23 @@ def _kernel(tensor_cores: bool):
     return fn
 
 
-def pack_taps_mma(weight: torch.Tensor) -> torch.Tensor:
-    """Conv weight ``[O, I, 3, 3, 3]`` -> bf16 ``[27, I padded to 32, O
-    padded to 32 (O <= 32) or 64]``, zero in the pads: the tensor-core
-    kernel's B operand."""
+def pack_conv_wgmma(weight: torch.Tensor) -> torch.Tensor:
+    """Conv weight ``[O, I, 3, 3, 3]`` -> the tensor-core core's B operand,
+    bf16 ``[27, I_pad / 16, O_pad / 8, 2, 8, 8]``: per tap and 16 input
+    channels, wgmma's K-major 8 x 8 core matrices ``[o // 8][(i % 16) // 8]
+    [o % 8][i % 8]`` (I_pad = I rounded up to 16, O_pad 16, 32 or 64; zero in
+    the pads)."""
     o, i = weight.shape[:2]
-    nb = 32 if o <= 32 else 64
+    cin_pad, cout_pad = -(-i // 16) * 16, _cout_pad(o)
     kp = weight.to(torch.bfloat16).permute(2, 3, 4, 1, 0).reshape(27, i, o)
-    return F.pad(kp, (0, -(-o // nb) * nb - o, 0, -(-i // _KC) * _KC - i)).contiguous()
+    kp = F.pad(kp, (0, cout_pad - o, 0, cin_pad - i))
+    return kp.reshape(27, cin_pad // 16, 2, 8, cout_pad // 8, 8).permute(0, 1, 4, 2, 5, 3).contiguous()
 
 
-def _launch(x, weight, scale, bias, add, stride, relu, what):
+def _launch(x, weight, scale, bias, add, stride, relu, what, *, flip=False):
+    """The kernel on CUDA tensors. ``flip``: convolve with ``weight`` flipped
+    in (d, h, w) and transposed in (in, out) (the input gradient), packed
+    from ``weight`` itself so that the pack is cached with it."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -108,9 +248,16 @@ def _launch(x, weight, scale, bias, add, stride, relu, what):
             raise ValueError(f"{what}: x/add must be contiguous and 16-byte aligned")
     dev = x.device
     b, d, h, w, cin = x.shape
-    cout = weight.shape[0]
-    tensor_cores = x.dtype == torch.bfloat16 and cin % 8 == 0
-    wp = (pack_taps_mma(weight) if tensor_cores else pack_taps(weight, x.dtype, _CO)).to(dev)
+    cout = weight.shape[1] if flip else weight.shape[0]
+    plan = conv_plan("s1" if stride == 1 else "s2", x.dtype, b, d, h, w, cin, cout,
+                     torch.cuda.get_device_properties(dev).multi_processor_count)
+    tensor_cores = plan.route == "tensor_cores"
+
+    def make():
+        wt = weight.flip(2, 3, 4).transpose(0, 1) if flip else weight
+        return (pack_conv_wgmma(wt) if tensor_cores else pack_taps(wt, x.dtype, _CO)).to(dev)
+
+    wp = cached_pack(weight, f"{plan.route}:{x.dtype}:{'flip' if flip else 'conv'}", make)
     s, bb = (v.to(dev, torch.float32).contiguous() for v in (scale, bias))
     out = torch.empty(
         b, (d - 1) // stride + 1, (h - 1) // stride + 1, (w - 1) // stride + 1, cout,
@@ -120,12 +267,12 @@ def _launch(x, weight, scale, bias, add, stride, relu, what):
         x.data_ptr(), wp.data_ptr(), s.data_ptr(), bb.data_ptr(),
         None if add is None else add.data_ptr(), out.data_ptr(),
         b, d, h, w, cin, cout, 0 if add is None else add.shape[1], int(relu),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
+    stream = torch.cuda.current_stream(dev).cuda_stream
     if tensor_cores:
-        status = _kernel(True)(stride, *args)
+        status = _kernel(True)(stride, *args, plan.sd, plan.ring, plan.blocks, plan.smem_bytes, stream)
     else:
-        status = _kernel(False)(1 if x.dtype == torch.bfloat16 else 0, stride, *args)
+        status = _kernel(False)(1 if x.dtype == torch.bfloat16 else 0, stride, *args, stream)
     check(status, what)
     return out
 
@@ -164,14 +311,20 @@ def gband_conv_s1_torch(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return F.conv3d(x.movedim(-1, 1), weight.to(x.dtype), padding=1).movedim(1, -1)
 
 
-def _conv_s1(x: torch.Tensor, weight: torch.Tensor, what: str) -> torch.Tensor:
+@functools.lru_cache(maxsize=32)
+def _unit_affine(cout: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    with torch.inference_mode(False):
+        return torch.ones(cout, device=device), torch.zeros(cout, device=device)
+
+
+def _conv_s1(x: torch.Tensor, weight: torch.Tensor, what: str, flip: bool = False) -> torch.Tensor:
     """The conv on x's device: the kernel (scale 1, bias 0, no ReLU) for a
-    CUDA tensor, the plain version for a CPU one."""
+    CUDA tensor, the plain version for a CPU one. ``flip``: with the weight
+    flipped in (d, h, w) and transposed in (in, out)."""
     if x.device.type == "cpu":
-        return gband_conv_s1_torch(x, weight)
-    cout = weight.shape[0]
-    ones = torch.ones(cout, device=x.device)
-    return _launch(x, weight, ones, torch.zeros_like(ones), None, 1, False, what)
+        return gband_conv_s1_torch(x, weight.flip(2, 3, 4).transpose(0, 1) if flip else weight)
+    ones, zeros = _unit_affine(weight.shape[1] if flip else weight.shape[0], x.device)
+    return _launch(x, weight, ones, zeros, None, 1, False, what, flip=flip)
 
 
 def gband_conv_s1_input_grad(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -180,7 +333,7 @@ def gband_conv_s1_input_grad(dy: torch.Tensor, weight: torch.Tensor) -> torch.Te
     (d, h, w) and transposed in (in, out). The kernel for a contiguous CUDA
     dy (counted in ``gband_conv_s1.backward_launches``), the plain version
     for a CPU one."""
-    dx = _conv_s1(dy, weight.flip(2, 3, 4).transpose(0, 1), "gband_conv_s1 input grad")
+    dx = _conv_s1(dy, weight, "gband_conv_s1 input grad", flip=True)
     if dy.is_cuda:
         gband_conv_s1.backward_launches += 1
     return dx

@@ -13,9 +13,12 @@ product, as the TPU kernel folds it (``pallas_gdeconv.py:175``), so bf16
 results agree; bias, ReLU and ``add`` (``[B, 2D, 2H, 2W, Cout]`` in x's
 dtype) are applied in f32. Returns ``[B, 2D, 2H, 2W, Cout]`` in x's dtype.
 
-On the card, bf16 with Cin a multiple of 8 runs on the tensor cores (an
-implicit GEMM over each output parity class's legal taps, f32
-accumulation); f32, or another Cin, on the CUDA cores.
+On the card, bf16 with Cin a multiple of 8 (up to 64) and Cout up to 64 runs
+on the tensor cores (``csrc/conv_wgmma.cuh`` in its transposed mode: a block
+writes all eight output parity classes of an input tile, each over its legal
+taps; f32 accumulation), tiled by ``cuda_gband.conv_plan``; f32, or another
+Cin, on the CUDA cores. The folded, packed weight is cached per version of
+the weight and the scale (``cuda_gband.cached_pack``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ecm_torch.kernels.build import check, library
-from ecm_torch.ops.cuda_gband import pack_taps, pack_taps_mma
+from ecm_torch.ops.cuda_gband import cached_pack, conv_plan, pack_conv_wgmma, pack_taps
 
 _CO = 16  # output channels per thread in the kernel: weights are padded to it
 
@@ -55,7 +58,7 @@ def _kernel(tensor_cores: bool):
     vp, i = ctypes.c_void_p, ctypes.c_int
     if tensor_cores:
         fn = library("deconv3d_bn").ecm_deconv3d_bn_mma
-        fn.argtypes = [vp] * 5 + [i] * 7 + [vp]
+        fn.argtypes = [vp] * 5 + [i] * 10 + [ctypes.c_longlong, vp]
     else:
         fn = library("deconv3d_bn").ecm_deconv3d_bn
         fn.argtypes = [i] + [vp] * 5 + [i] * 7 + [vp]
@@ -92,21 +95,28 @@ def deconv3d_bn(x, weight, scale, bias, add=None, *, relu=False):
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError("deconv3d_bn: x/add must be contiguous and 16-byte aligned")
     dev = x.device
-    tensor_cores = x.dtype == torch.bfloat16 and cin % 8 == 0
-    # [Cin, Cout, k] -> the conv layout [Cout, Cin, k] that the packers read
-    wf = _fold(weight, scale, x.dtype).transpose(0, 1)
-    wp = (pack_taps_mma(wf) if tensor_cores else pack_taps(wf, x.dtype, _CO)).to(dev)
+    plan = conv_plan("transposed", x.dtype, b, d, h, w, cin, cout,
+                     torch.cuda.get_device_properties(dev).multi_processor_count)
+    tensor_cores = plan.route == "tensor_cores"
+
+    def make():
+        # [Cin, Cout, k] -> the conv layout [Cout, Cin, k] that the packers read
+        wf = _fold(weight, scale, x.dtype).transpose(0, 1)
+        return (pack_conv_wgmma(wf) if tensor_cores else pack_taps(wf, x.dtype, _CO)).to(dev)
+
+    wp = cached_pack(weight, f"deconv:{plan.route}:{x.dtype}", make, scale)
     bb = bias.to(dev, torch.float32).contiguous()
     out = torch.empty(b, 2 * d, 2 * h, 2 * w, cout, dtype=x.dtype, device=dev)
     args = (
         x.data_ptr(), wp.data_ptr(), bb.data_ptr(),
         None if add is None else add.data_ptr(), out.data_ptr(),
-        b, d, h, w, cin, cout, int(relu), torch.cuda.current_stream(dev).cuda_stream,
+        b, d, h, w, cin, cout, int(relu),
     )
+    stream = torch.cuda.current_stream(dev).cuda_stream
     if tensor_cores:
-        status = _kernel(True)(*args)
+        status = _kernel(True)(*args, plan.sd, plan.ring, plan.blocks, plan.smem_bytes, stream)
     else:
-        status = _kernel(False)(1 if x.dtype == torch.bfloat16 else 0, *args)
+        status = _kernel(False)(1 if x.dtype == torch.bfloat16 else 0, *args, stream)
     check(status, "deconv3d_bn")
     deconv3d_bn.launches += 1
     return out

@@ -19,7 +19,9 @@ from ecm_torch.ops.cuda_gband import (
     conv3d_bn_down,
     conv3d_bn_s1,
     conv3d_bn_torch,
+    conv_route,
     gband_conv_s1,
+    gband_conv_s1_input_grad,
     gband_conv_s1_torch,
 )
 from ecm_torch.ops.cuda_gdeconv import deconv3d_bn, deconv3d_bn_torch
@@ -206,3 +208,59 @@ def test_correlation_kernel(dev, dtype, c):
     ap, bp = fl.clone().requires_grad_(), fr.clone().requires_grad_()
     cost_volume_correlation_torch(ap, bp, 12).backward(gout)
     assert torch.equal(a.grad, ap.grad) and torch.equal(b.grad, bp.grad)
+
+
+# the tensor-core conv core (csrc/conv_wgmma.cuh) at ragged shapes: W not a
+# multiple of the 16-wide tile, D = 1, odd H, B = 2; (mode, [B, D, H, W], Cin, Cout)
+RAGGED = {
+    "s1_w37": ("s1", (2, 5, 9, 37), 32, 32),
+    "s1_d1": ("s1", (2, 1, 7, 21), 64, 32),
+    "s1_oddh": ("s1", (2, 4, 11, 16), 32, 64),
+    "s2_w37": ("s2", (2, 5, 9, 37), 32, 64),
+    "s2_d1": ("s2", (2, 1, 7, 21), 32, 64),
+    "s2_oddh": ("s2", (2, 6, 11, 18), 16, 24),
+    "t_w19": ("transposed", (2, 3, 5, 19), 64, 32),
+    "t_d1": ("transposed", (2, 1, 7, 9), 64, 32),
+    "t_oddh": ("transposed", (2, 2, 9, 16), 32, 16),
+}
+
+
+@pytest.mark.parametrize(
+    "form,with_add",
+    [(f, a) for f in sorted(RAGGED) for a in (False, True) if not (a and f.startswith("s2"))],
+)
+def test_conv_core_ragged(dev, form, with_add):
+    """Each mode of the conv core against its plain version where the tiles,
+    slabs and ring meet the volume's edges, with and without the add."""
+    mode, (b, d, h, w), cin, cout = RAGGED[form]
+    assert conv_route(mode, torch.bfloat16, cin, cout) == "tensor_cores"
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(b, d, h, w, cin, generator=g).to(dev, torch.bfloat16)
+    s, bb = (torch.rand(cout, generator=g) + 0.5).to(dev), torch.randn(cout, generator=g).to(dev)
+    if mode == "transposed":
+        k = (torch.randn(cin, cout, 3, 3, 3, generator=g) * 0.2).to(dev)
+        add = torch.randn(b, 2 * d, 2 * h, 2 * w, cout, generator=g).to(dev, torch.bfloat16) if with_add else None
+        out = deconv3d_bn(x, k, s, bb, add)
+        ref = deconv3d_bn_torch(x, k, s, bb, add)
+    else:
+        k = (torch.randn(cout, cin, 3, 3, 3, generator=g) * 0.2).to(dev)
+        if mode == "s2":  # takes no add
+            out = conv3d_bn_down(x, k, s, bb)
+            ref = conv3d_bn_torch(x, k, s, bb, stride=2)
+        else:
+            add = torch.randn(b, d, h, w, cout, generator=g).to(dev, torch.bfloat16) if with_add else None
+            out = conv3d_bn_s1(x, k, s, bb, add, relu=not with_add)
+            ref = conv3d_bn_torch(x, k, s, bb, add, relu=not with_add)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape
+    assert _rel(out, ref) <= 2e-2
+
+
+def test_gband_input_grad_ragged(dev):
+    """The input gradient 32 -> 64 through the conv core at a ragged shape."""
+    g = torch.Generator().manual_seed(9)
+    wt = (torch.randn(32, 64, 3, 3, 3, generator=g) * 0.1).to(dev, torch.bfloat16)
+    dy = torch.randn(2, 3, 9, 37, 32, generator=g).to(dev, torch.bfloat16)
+    dx = gband_conv_s1_input_grad(dy, wt)
+    torch.cuda.synchronize()
+    assert _rel(dx, gband_conv_s1_torch(dy, wt.flip(2, 3, 4).transpose(0, 1))) <= 2e-2
