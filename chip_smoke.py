@@ -10,8 +10,11 @@
    where one exists, one cuDNN call of the same function with CUDA events
    (median of 10 runs); for the conv core (``csrc/conv_wgmma.cuh``) also the
    kernel's and cuDNN's device time (torch.profiler) and the plan
-   (``cuda_gband.conv_plan``). The build fails on a ptxas spill in any
-   instantiation of the conv core or of the pair's tensor-core kernel.
+   (``cuda_gband.conv_plan``); for the regression and the correlation
+   volume the device time by symbol (and the regression's plan,
+   ``regression_plan``). The build fails on a ptxas spill in any
+   instantiation of the conv core, of the pair's tensor-core kernel, of the
+   regression or of the correlation kernel.
 2. Serves ``CONFIGS["kitti_infer"].model.build(...)`` at full width (seeded
    random weights) along four paths, each with every launch count set to 0
    just before it and read just after:
@@ -42,7 +45,8 @@
    launches a step and no eval kernel; the loss finite and falling. Then
    one step of the grouped path against one of the standard (cuDNN) path on
    the same weights and batch, ms per step (median of 10), peak memory and
-   a profiled step.
+   a profiled step, whose device-to-device memcpy must stay under 1 ms (the
+   cost volumes' closed-form VJP copies no gradient volume).
 5. Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -102,6 +106,11 @@ CORR_WITNESS_SEEDS = (1, 2, 3, 4, 5, 6, 7, 8)
 TRAIN_LOSS_REL_TOL = 2e-2  # one grouped step against one cuDNN step, bf16
 TRAIN_GRAD_COSINE = 0.99  # the seven kernel-conv weight gradients, same comparison
 TRAIN_STEPS = 20  # train_loop steps on one fixed batch; the loss must fall
+# device-to-device copies in a profiled train step (12.75 ms when autograd
+# cloned the gradient volume at each of the plain builder's 96 slice
+# assignments; the closed-form VJP copies none of it)
+TRAIN_MEMCPY_MS = 1.0
+MEMCPY_DTOD = "memcpy device to device"
 PLAIN = dict(agg_layout="standard", agg_fused="off", use_pallas=False, regress_mode="fullres")
 PLAIN_BASIC = dict(use_pallas=False, regress_mode="fullres")
 OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -315,6 +324,9 @@ def check_fused_pair(gen) -> dict:
 
 
 def check_regression(gen, sm_clock_hz: float) -> dict:
+    """The regression at the kitti_infer shape: against its plain version,
+    its plan (``regression_plan``) and its device time by symbol beside the
+    CUDA-event time."""
     cost4 = torch.randn(B, D4, H4, W4, generator=gen, device="cuda").bfloat16()
     out = regk.fused_upsample_softargmin(cost4, MAX_DISP)
     torch.cuda.synchronize()
@@ -327,7 +339,9 @@ def check_regression(gen, sm_clock_hz: float) -> dict:
     return dict(
         name="fused_upsample_softargmin", route="cuda", source="ecm_torch/csrc/regression.cu",
         replaces="ecm_tpu/ops/pallas_regression.py:140", max_abs_err=err,
+        plan=regk.regression_plan(*cost4.shape)._asdict(),
         ms=time_ms(lambda: regk.fused_upsample_softargmin(cost4, MAX_DISP)),
+        device_ms=device_ms(lambda: regk.fused_upsample_softargmin(cost4, MAX_DISP), REGRESSION),
         plain_ms=time_ms(lambda: regk.fused_upsample_softargmin_torch(cost4, MAX_DISP)),
         bound_ms=bound_ms, bound_by=by, library_ms=None,
     )
@@ -502,7 +516,7 @@ def check_correlation(gen) -> dict:
         replaces="ecm_tpu/ops/pallas_cost_volume.py:150", max_abs_err=err, rel_err=rel,
         roundings=rounding,
         ms=time_ms(lambda: cvk.cost_volume_correlation(fl, fr, D4)),
-        device_ms=device_ms(lambda: cvk.cost_volume_correlation(fl, fr, D4), "correlation_kernel"),
+        device_ms=device_ms(lambda: cvk.cost_volume_correlation(fl, fr, D4), CORRELATION),
         plain_ms=time_ms(lambda: cvk.cost_volume_correlation_torch(fl, fr, D4)),
         bound_ms=bound_ms, bound_by=by, library_ms=None,
     )
@@ -670,14 +684,22 @@ def serve(path: str, name: str, overrides: dict, per_forward: dict, batch8: bool
 # OLD_CONV_MMA is the WMMA core that conv_wgmma.cuh replaced: no profile may
 # hold it.
 PAIR_MMA, PAIR_CORES = "fused_pair_mma_kernel", "fused_pair_kernel"
+REGRESSION, CORRELATION = "upsample_softargmin_kernel", "correlation_kernel"
 CONV_WGMMA, OLD_CONV_MMA = "conv3d_wgmma_kernel", "conv3d_mma_kernel"
-CONV_INSTANTIATIONS = {"conv3d_bn": 6, "deconv3d_bn": 3}  # (modes) x Cout_pad 16, 32, 64
+# kernels none of whose instantiations may spill: source -> (symbol, count).
+# The conv core: (modes) x Cout_pad 16, 32, 64; the tensor-core pair: one per
+# Cout_pad / 8; the regression: f32, bf16; the correlation: f32, bf16 x C
+# padded to 8, 16, 32, 64
+NO_SPILL = {
+    "conv3d_bn": (CONV_WGMMA, 6), "deconv3d_bn": (CONV_WGMMA, 3), "fused_conv3d_pair": (PAIR_MMA, 4),
+    "regression": (REGRESSION, 2), "cost_volume": (CORRELATION, 8),
+}
 PORT_SYMBOLS = (
     (f"{CONV_WGMMA}<0", "deconv3d_bn"), (CONV_WGMMA, "conv3d_bn"),
     ("deconv3d_bn_kernel", "deconv3d_bn"), ("conv3d_bn_kernel", "conv3d_bn"),
     (PAIR_MMA, "fused_conv3d_pair"), (PAIR_CORES, "fused_conv3d_pair (CUDA cores)"),
     ("concat_kernel", "cost_volume_concat"),
-    ("upsample_softargmin_kernel", "fused_upsample_softargmin"),
+    (REGRESSION, "fused_upsample_softargmin"),
 )
 
 
@@ -817,18 +839,24 @@ def profile_train_step(state, step, batch) -> dict:
             gband += 1
         elif "wgrad" in e.name.lower():
             label = "cuDNN weight grad (every conv)"
+        elif "Memcpy DtoD" in e.name:
+            label = MEMCPY_DTOD
         else:
             label = "other"
         groups[label] = groups.get(label, 0.0) + ms
     if gband != 14:
         raise AssertionError(f"profiled train step ran {gband} gband_conv_s1 kernels, expected 14")
+    memcpy = groups.get(MEMCPY_DTOD, 0.0)
+    log(f"  train step device ms by group: {json.dumps(groups)}; device-to-device memcpy {memcpy:.3f} ms")
+    if not memcpy < TRAIN_MEMCPY_MS:
+        raise AssertionError(f"train step: {memcpy} ms of device-to-device memcpy, not under {TRAIN_MEMCPY_MS}")
     busy_us, end = 0.0, float("-inf")
     for e in events:
         busy_us += max(0.0, e.time_range.end - max(e.time_range.start, end))
         end = max(end, e.time_range.end)
     return dict(
         wall_ms=wall_ms, device_busy_ms=busy_us / 1e3, idle_share=1 - busy_us / 1e3 / wall_ms,
-        device_ms_by_group=groups, device_events=len(events),
+        device_ms_by_group=groups, memcpy_dtod_ms=memcpy, device_events=len(events),
         top_kernels_ms=[(k[:90], v) for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]],
     )
 
@@ -897,22 +925,14 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    for src, count in CONV_INSTANTIATIONS.items():
+    for src, (symbol, count) in NO_SPILL.items():
         if src not in logs:
             continue
-        # every instantiation of the conv core: none may spill
-        core = {fn: r for fn, r in ptxas_report(logs[src]).items() if CONV_WGMMA in fn}
-        for fn, r in core.items():
-            log(f"  {CONV_WGMMA} {fn}: {r}")
-        if len(core) != count or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in core.values()):
-            raise AssertionError(f"{CONV_WGMMA} in {src}: ptxas report {core}")
-    if "fused_conv3d_pair" in logs:
-        # the tensor-core pair must not spill (one entry per Cout_pad / 8)
-        mma = {fn: r for fn, r in ptxas_report(logs["fused_conv3d_pair"]).items() if PAIR_MMA in fn}
-        for fn, r in mma.items():
-            log(f"  {PAIR_MMA} {fn}: {r}")
-        if len(mma) != 4 or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in mma.values()):
-            raise AssertionError(f"{PAIR_MMA}: ptxas report {mma}")
+        found = {fn: r for fn, r in ptxas_report(logs[src]).items() if symbol in fn}
+        for fn, r in found.items():
+            log(f"  {symbol} {fn}: {r}")
+        if len(found) != count or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in found.values()):
+            raise AssertionError(f"{symbol} in {src}: ptxas report {found}")
     log(f"phase build: {len(logs)} kernels compiled in {time.time() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -30,14 +30,21 @@
 // 3.8 MB and writes 2.9 MB (about 2 us at 3.35 TB/s) for 46 M multiply-adds
 // (1.4 us on the CUDA cores at 67 TFLOP/s f32).
 //
-// Design: one block per (b, h) row and chunk of kCorrD disparities (6
-// blocks a row at D=48, so that enough blocks are in flight to hide the
-// latency of the row loads). The block reads the two feature rows once,
-// into shared memory as f32 with a row pitch of C + 1 words (so the 32
-// threads of a warp, on 32 neighbouring columns, hit 32 different banks),
-// then sweeps its (d, w) with w fastest: every warp writes 32 neighbouring
-// outputs of one plane. Global memory sees each row D / kCorrD times (from
-// L2 after the first), not D times.
+// Design: a block per (b, h) row and tile of kCorrW = 64 columns, with all
+// D disparities of those columns, so each feature row is read from device
+// memory once (plus a halo of D columns of fr). The block stages fr's
+// columns w0 - D .. w0 + 64 and fl's w0 .. w0 + 63 into shared memory as
+// f32, in coalesced 16-byte loads (zero outside the image, channels padded
+// with zeros to CP, a power of 2), even columns before odd ones, row pitch
+// CP + 2 words (an odd number of 8-byte units). Its 128 threads are
+// kCorrGroups = 4 groups of 32; thread (g, l) owns the two columns w0 + 2l
+// and w0 + 2l + 1, holds both fl rows in registers (f32), and walks the
+// D / 4 + 1 fr rows of its group's D / 4 disparities: fr row s is
+// fr[(w + 1) - d] for column w + 1 and fr[w - (d - 1)] for column w, so each
+// float2 shared load feeds four FMAs, and a warp's 32 threads read 32
+// neighbouring rows of one parity, 16 distinct bank pairs per half warp.
+// Sums in f32 (two per column), scaled by 1/C and rounded once at the
+// store; the zero channels add +0.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -90,67 +97,138 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-constexpr int kCorrThreads = 256;
-constexpr int kCorrD = 8;  // disparities per block
+constexpr int kCorrW = 64;       // columns per block, two a thread
+constexpr int kCorrGroups = 4;   // disparity groups per block
+constexpr int kCorrThreads = kCorrW / 2 * kCorrGroups;
 
-template <typename T>
-__global__ void __launch_bounds__(kCorrThreads)
-    correlation_kernel(const T* __restrict__ fl, const T* __restrict__ fr, T* __restrict__ out,
-                       int H, int W, int C, int D) {
-  extern __shared__ float rows[];  // [2][W][C + 1]: fl row, then fr row
-  const int pitch = C + 1;
-  float* sl = rows;
-  float* sr = rows + (size_t)W * pitch;
-  const int bh = blockIdx.x;  // b * H + h
-  const int b = bh / H, h = bh % H;
-  const int d0 = blockIdx.y * kCorrD, nd = min(kCorrD, D - d0);
-  const T* gl = fl + (size_t)bh * W * C;
-  const T* gr = fr + (size_t)bh * W * C;
-  for (int i = threadIdx.x; i < W * C; i += kCorrThreads) {
-    const int w = i / C, c = i % C;
-    sl[w * pitch + c] = to_f32(gl[i]);
-    sr[w * pitch + c] = to_f32(gr[i]);
-  }
-  __syncthreads();
-  const float inv_c = 1.0f / (float)C;
-  for (int i = threadIdx.x; i < nd * W; i += kCorrThreads) {
-    const int d = d0 + i / W, w = i % W;
-    float acc = 0.f;
-    if (w >= d) {
-      const float* a = sl + w * pitch;
-      const float* r = sr + (w - d) * pitch;
-      for (int c = 0; c < C; ++c) acc = fmaf(a[c], r[c], acc);
-      acc *= inv_c;
+// Stage feature columns first .. first + n - 1 of one row (C channels) into
+// shared memory as f32 rows of CP + 2 words, zero outside [0, W) and in the
+// channels from C to CP, even columns (j = 0, 2, ..) before odd ones, so
+// that 32 threads on every other column read 32 neighbouring rows. Rows of
+// CP = C channels go in 16-byte loads.
+template <typename T, int CP>
+__device__ __forceinline__ void stage_columns(float* dst, const T* __restrict__ row, int first,
+                                              int n, int W, int C) {
+  constexpr int pitch = CP + 2, V = 16 / sizeof(T), units = CP / V;
+  const int half = (n + 1) / 2;
+  if (C == CP) {
+    for (int k = threadIdx.x; k < n * units; k += kCorrThreads) {
+      const int j = k / units, u = k % units, col = first + j;
+      uint4 raw = make_uint4(0, 0, 0, 0);
+      if (col >= 0 && col < W) raw = __ldg(reinterpret_cast<const uint4*>(row + (size_t)col * CP) + u);
+      const T* v = reinterpret_cast<const T*>(&raw);
+      float2* o = reinterpret_cast<float2*>(dst + ((j & 1) * half + (j >> 1)) * pitch + u * V);
+#pragma unroll
+      for (int e = 0; e < V / 2; ++e) o[e] = make_float2(to_f32(v[2 * e]), to_f32(v[2 * e + 1]));
     }
-    store(out + (((size_t)b * D + d) * H + h) * W + w, acc);
+  } else {
+    for (int k = threadIdx.x; k < n * CP; k += kCorrThreads) {
+      const int j = k / CP, c = k % CP, col = first + j;
+      dst[((j & 1) * half + (j >> 1)) * pitch + c] =
+          (c < C && col >= 0 && col < W) ? to_f32(row[(size_t)col * C + c]) : 0.f;
+    }
   }
 }
 
-template <typename T>
+// Both columns' dot products with one staged row, each row pair of
+// channels loaded once for four FMAs (two sums per column).
+template <int CP>
+__device__ __forceinline__ void dot2(const float (&a0)[CP], const float (&a1)[CP],
+                                     const float* __restrict__ r, float& v0, float& v1) {
+  float s00 = 0.f, s01 = 0.f, s10 = 0.f, s11 = 0.f;
+#pragma unroll
+  for (int c = 0; c < CP; c += 2) {
+    const float2 v = *reinterpret_cast<const float2*>(r + c);
+    s00 = fmaf(a0[c], v.x, s00);
+    s01 = fmaf(a0[c + 1], v.y, s01);
+    s10 = fmaf(a1[c], v.x, s10);
+    s11 = fmaf(a1[c + 1], v.y, s11);
+  }
+  v0 = s00 + s01;
+  v1 = s10 + s11;
+}
+
+template <typename T, int CP>
+__global__ void __launch_bounds__(kCorrThreads)
+    correlation_kernel(const T* __restrict__ fl, const T* __restrict__ fr, T* __restrict__ out,
+                       int H, int W, int C, int D) {
+  // fr columns w0 - D .. w0 + kCorrW (parity-split), then fl columns w0 ..
+  // w0 + kCorrW - 1 (parity-split), rows of CP + 2 words
+  extern __shared__ float rows[];
+  constexpr int pitch = CP + 2;
+  const int bh = blockIdx.y;  // b * H + h
+  const int b = bh / H, h = bh - b * H;
+  const int w0 = blockIdx.x * kCorrW, cols = kCorrW + D + 1, half = (cols + 1) / 2;
+  float* lrows = rows + 2 * half * pitch;
+  stage_columns<T, CP>(rows, fr + (size_t)bh * W * C, w0 - D, cols, W, C);
+  stage_columns<T, CP>(lrows, fl + (size_t)bh * W * C, w0, kCorrW, W, C);
+  __syncthreads();
+  const int l = threadIdx.x % 32, g = threadIdx.x / 32, w = w0 + 2 * l;  // columns w, w + 1
+  if (w >= W) return;  // no barrier follows
+  float a0[CP], a1[CP];
+#pragma unroll
+  for (int c = 0; c < CP; c += 2) {
+    const float2 v0 = *reinterpret_cast<const float2*>(lrows + l * pitch + c);
+    const float2 v1 = *reinterpret_cast<const float2*>(lrows + (kCorrW / 2 + l) * pitch + c);
+    a0[c] = v0.x, a0[c + 1] = v0.y, a1[c] = v1.x, a1[c + 1] = v1.y;
+  }
+  // group g: disparities d0 .. d1 - 1 of both columns, from the rows
+  // s = w + 1 - d0 - k, k = 0 .. d1 - d0: row k is fr[(w + 1) - (d0 + k)]
+  // and fr[w - (d0 + k - 1)]
+  const int per = (D + kCorrGroups - 1) / kCorrGroups;
+  const int d0 = g * per, d1 = min(D, d0 + per);
+  const float inv_c = 1.0f / (float)C;
+  T* o = out + ((size_t)b * D * H + h) * W + w;  // + d * H * W
+  const bool second = w + 1 < W;
+#pragma unroll 2
+  for (int k = 0; k <= d1 - d0; ++k) {
+    // staged index of row s is s - (w0 - D) = 2 l + q: region q & 1, slot l + q / 2
+    const int q = D + 1 - d0 - k;
+    const float* r = rows + ((q & 1) * half + l + (q >> 1)) * pitch;
+    const int d = d0 + k;
+    float v0, v1;
+    dot2<CP>(a0, a1, r, v0, v1);
+    if (d < d1 && second) store(o + (size_t)d * H * W + 1, w + 1 >= d ? v1 * inv_c : 0.f);
+    if (k > 0) store(o + (size_t)(d - 1) * H * W, w >= d - 1 ? v0 * inv_c : 0.f);
+  }
+}
+
+template <typename T, int CP>
 cudaError_t launch_correlation(const void* fl, const void* fr, void* out, int B, int H, int W,
                                int C, int D, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)W * (C + 1) * sizeof(float);
+  const size_t smem = (size_t)((kCorrW + D + 2) / 2 * 2 + kCorrW) * (CP + 2) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        correlation_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        correlation_kernel<T, CP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((unsigned)((size_t)B * H), (D + kCorrD - 1) / kCorrD);
-  correlation_kernel<T><<<grid, kCorrThreads, smem, stream>>>(
+  const dim3 grid((W + kCorrW - 1) / kCorrW, (unsigned)((size_t)B * H));
+  correlation_kernel<T, CP><<<grid, kCorrThreads, smem, stream>>>(
       static_cast<const T*>(fl), static_cast<const T*>(fr), static_cast<T*>(out), H, W, C, D);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_correlation(const void* fl, const void* fr, void* out, int B, int H, int W,
+                                 int C, int D, cudaStream_t stream) {
+  if (C <= 8) return launch_correlation<T, 8>(fl, fr, out, B, H, W, C, D, stream);
+  if (C <= 16) return launch_correlation<T, 16>(fl, fr, out, B, H, W, C, D, stream);
+  if (C <= 32) return launch_correlation<T, 32>(fl, fr, out, B, H, W, C, D, stream);
+  if (C <= 64) return launch_correlation<T, 64>(fl, fr, out, B, H, W, C, D, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Correlation volume. dtype: 0 = float32, 1 = bfloat16 (fl, fr and out).
-// out is [B, D, H, W]. Needs 2 * W * (C + 1) * 4 bytes of shared memory
-// (at most 227 KB).
+// out is [B, D, H, W]. C <= 64 (else cudaErrorInvalidValue); needs
+// (128 + D + 2) * (CP + 2) * 4 bytes of shared memory, CP the power of 2 from
+// 8 to 64 at or above C (at most 227 KB).
 extern "C" int ecm_cost_volume_correlation(int dtype, const void* fl, const void* fr, void* out,
                                            int B, int H, int W, int C, int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_correlation<__nv_bfloat16>(fl, fr, out, B, H, W, C, D, s);
-  return launch_correlation<float>(fl, fr, out, B, H, W, C, D, s);
+  if (dtype == 1) return dispatch_correlation<__nv_bfloat16>(fl, fr, out, B, H, W, C, D, s);
+  return dispatch_correlation<float>(fl, fr, out, B, H, W, C, D, s);
 }
 
 // row_bytes = C * element size. All pointers must be 16-byte aligned.

@@ -107,7 +107,9 @@ class ECMStereo(_StereoModel):
     eval dispatch, on NDHWC volumes in both: "standard" runs cuDNN or, with
     ``agg_fused`` ("auto": on CUDA), the fused pair kernel; "grouped" runs
     the layer kernels (``ECMAggregation``); "auto" resolves per forward
-    (:meth:`resolve_layout`)."""
+    (:meth:`resolve_layout`). ``context_stages`` (0 = after dres0, i = at
+    hourglass i's input) and ``num_hourglass`` are JAX's, passed to the
+    aggregation."""
 
     def __init__(
         self,
@@ -115,6 +117,8 @@ class ECMStereo(_StereoModel):
         feature_channels: int = 32,
         cost_mode: str = "concat",
         context_fusion: str = "add",
+        context_stages: tuple[int, ...] = (0, 1, 2, 3),
+        num_hourglass: int = 3,
         use_pallas: bool = False,
         agg_fused: str = "off",
         agg_layout: str = "auto",
@@ -133,7 +137,9 @@ class ECMStereo(_StereoModel):
         self.aggregation = ECMAggregation(
             channels=c,
             in_channels=2 * c if cost_mode == "concat" else 1,
+            num_hourglass=num_hourglass,
             context_fusion=context_fusion,
+            context_stages=context_stages,
             fused=agg_fused,
             remat=remat,
         )

@@ -8,8 +8,12 @@ of their CUDA kernels (``ecm_torch/csrc/cost_volume.cu``; replace
 - correlation: ``[B, H, W, C]`` x2 -> ``[B, D, H, W, 1]``: the mean over C of
   ``fl[w] * fr[w - d]``, in f32, zero for ``w < d``.
 
-Both wrappers are differentiable: the backward is the plain builder's VJP,
-as ``_cv_bwd_rule``/``_corr_bwd_rule`` take the jnp builder's in JAX.
+The plain builders and both wrappers are differentiable through one
+closed-form VJP in plain torch per volume (``_concat_vjp``,
+``_correlation_vjp``), the counterpart of the jnp builder's VJP that
+``_cv_bwd_rule``/``_corr_bwd_rule`` take in JAX: sums over d of masked and
+shifted gradient planes in f32, rounded once. Autograd never sees the
+slice assignments, so it copies no gradient volume.
 """
 
 from __future__ import annotations
@@ -21,10 +25,10 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ecm_torch.kernels.build import check, library
+from ecm_torch.ops.cuda_gband import SMEM_PER_BLOCK
 
 
-def cost_volume_concat_torch(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> torch.Tensor:
-    """Plain PyTorch concat volume (the CPU path and the kernel's reference)."""
+def _concat_volume(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> torch.Tensor:
     b, h, w, c = fl.shape
     out = fl.new_zeros(b, max_disp, h, w, 2 * c)
     for d in range(min(max_disp, w)):
@@ -33,15 +37,70 @@ def cost_volume_concat_torch(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) 
     return out
 
 
-def cost_volume_correlation_torch(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> torch.Tensor:
-    """Plain PyTorch correlation volume (the CPU path and the kernel's
-    reference): products and mean in f32, rounded to fl's dtype."""
+def _correlation_volume(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> torch.Tensor:
     b, h, w, _ = fl.shape
     out = fl.new_zeros(b, max_disp, h, w, 1)
     for d in range(min(max_disp, w)):
         prod = fl[:, :, d:].float() * fr[:, :, : w - d].float()
         out[:, d, :, d:] = prod.mean(-1, keepdim=True).to(fl.dtype)
     return out
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """f32, or the input's type where it is wider (f64)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _column_mask(max_disp: int, w: int, device) -> torch.Tensor:
+    """[D, W]: True where column w holds a value at disparity d (w >= d)."""
+    return torch.arange(w, device=device) >= torch.arange(max_disp, device=device)[:, None]
+
+
+def _pad_columns(x: torch.Tensor, dim: int, before: int, after: int, dtype: torch.dtype) -> torch.Tensor:
+    """A contiguous copy of ``x`` in ``dtype`` with zero columns added
+    before and after along ``dim``."""
+    shape = list(x.shape)
+    shape[dim] += before + after
+    out = x.new_zeros(shape, dtype=dtype)
+    out.narrow(dim, before, x.shape[dim]).copy_(x)
+    return out
+
+
+def _along_diagonal(gp: torch.Tensor, w: int) -> torch.Tensor:
+    """``gp`` [B, D, H, W + D - 1, ...] (contiguous) -> the view
+    [B, D, H, W, ...] whose entry (b, d, h, j) is ``gp[b, d, h, j + d]``."""
+    st = list(gp.stride())
+    st[1] += st[3]
+    return gp.as_strided((*gp.shape[:3], w, *gp.shape[4:]), st)
+
+
+def _concat_vjp(g: torch.Tensor, fl: torch.Tensor, fr: torch.Tensor, max_disp: int):
+    """Closed-form VJP of the concat volume, summed in f32 (f64 for f64)
+    and rounded once: ``dfl[w] = sum_d [w >= d] g[d, w, :C]`` and
+    ``dfr[j] = sum_d g[d, j + d, C:]`` (columns j + d < W)."""
+    w, c = fl.shape[2:]
+    acc = _acc_dtype(g.dtype)
+    mask = _column_mask(max_disp, w, g.device)[:, None, :, None]
+    dfl = torch.where(mask, g[..., :c], 0).sum(1, dtype=acc)
+    gp = _pad_columns(g[..., c:], 3, 0, max_disp - 1, g.dtype)
+    dfr = _along_diagonal(gp, w).sum(1, dtype=acc)
+    return dfl.to(fl.dtype), dfr.to(fr.dtype)
+
+
+def _correlation_vjp(g: torch.Tensor, fl: torch.Tensor, fr: torch.Tensor, max_disp: int):
+    """Closed-form VJP of the correlation volume, in f32 (f64 for f64) and
+    rounded once: ``dfl[w] = sum_d [w >= d] g[d, w] fr[w - d] / C`` and
+    ``dfr[j] = sum_d g[d, j + d] fl[j + d] / C`` (columns j + d < W)."""
+    w, c = fl.shape[2:]
+    acc = _acc_dtype(g.dtype)
+    gm = torch.where(_column_mask(max_disp, w, g.device)[:, None], g[..., 0], 0).to(acc)  # [B, D, H, W]
+    # frp[w + D - 1 - d] = fr[w - d] (0 for w < d); its windows k = D - 1 - d
+    frp = _pad_columns(fr, 2, max_disp - 1, 0, acc)
+    dfl = torch.einsum("bkhw,bhkcw->bhwc", gm.flip(1), frp.unfold(2, w, 1))
+    gd = _along_diagonal(_pad_columns(gm, 3, 0, max_disp - 1, acc), w)  # g[d, j + d]
+    flp = _pad_columns(fl, 2, 0, max_disp - 1, acc)  # window d: fl[j + d]
+    dfr = torch.einsum("bdhj,bhdcj->bhjc", gd, flp.unfold(2, w, 1))
+    return (dfl / c).to(fl.dtype), (dfr / c).to(fr.dtype)
 
 
 @functools.cache
@@ -73,7 +132,7 @@ def _check_cuda(fl: torch.Tensor, fr: torch.Tensor) -> None:
 
 def _concat_forward(fl, fr, max_disp):
     if fl.device.type == "cpu":
-        return cost_volume_concat_torch(fl, fr, max_disp)
+        return _concat_volume(fl, fr, max_disp)
     _check_cuda(fl, fr)
     b, h, w, c = fl.shape
     out = torch.empty(b, max_disp, h, w, 2 * c, dtype=fl.dtype, device=fl.device)
@@ -86,13 +145,23 @@ def _concat_forward(fl, fr, max_disp):
     return out
 
 
+def _correlation_smem(c: int, max_disp: int) -> int:
+    """Shared memory of the correlation kernel (``cost_volume.cu``): fr's
+    tile and halo, then fl's tile, rows of CP + 2 f32 words, CP the power of
+    2 from 8 to 64 at or above C."""
+    cp = max(8, 1 << (c - 1).bit_length())
+    return ((64 + max_disp + 2) // 2 * 2 + 64) * (cp + 2) * 4
+
+
 def _correlation_forward(fl, fr, max_disp):
     if fl.device.type == "cpu":
-        return cost_volume_correlation_torch(fl, fr, max_disp)
+        return _correlation_volume(fl, fr, max_disp)
     if fl.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"cost_volume_correlation takes float32 or bfloat16, got {fl.dtype}")
     _check_cuda(fl, fr)
     b, h, w, c = fl.shape
+    if c > 64 or _correlation_smem(c, max_disp) > SMEM_PER_BLOCK:
+        raise ValueError(f"cost_volume_correlation takes C <= 64 and D within shared memory, got {c}, {max_disp}")
     out = torch.empty(b, max_disp, h, w, 1, dtype=fl.dtype, device=fl.device)
     status = _kernel("ecm_cost_volume_correlation")(
         int(fl.dtype == torch.bfloat16), fl.data_ptr(), fr.data_ptr(), out.data_ptr(),
@@ -104,23 +173,35 @@ def _correlation_forward(fl, fr, max_disp):
 
 
 class _CostVolume(torch.autograd.Function):
-    """A volume whose forward is the kernel (plain builder on the CPU) and
-    whose backward is the plain builder's VJP."""
+    """A volume built by ``forward`` (a kernel's wrapper or a plain
+    builder) whose backward is the closed-form ``vjp``: no volume is rebuilt
+    or copied under autograd."""
 
     @staticmethod
-    def forward(ctx, fl, fr, max_disp, forward, plain):
+    def forward(ctx, fl, fr, max_disp, forward, vjp):
         ctx.save_for_backward(fl, fr)
-        ctx.max_disp, ctx.plain = max_disp, plain
+        ctx.max_disp, ctx.vjp = max_disp, vjp
         return forward(fl, fr, max_disp)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         fl, fr = ctx.saved_tensors
-        with torch.enable_grad():
-            a, b = fl.detach().requires_grad_(), fr.detach().requires_grad_()
-            dfl, dfr = torch.autograd.grad(ctx.plain(a, b, ctx.max_disp), (a, b), g)
-        return dfl, dfr, None, None, None
+        return (*ctx.vjp(g, fl, fr, ctx.max_disp), None, None, None)
+
+
+def cost_volume_concat_torch(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> torch.Tensor:
+    """Plain PyTorch concat volume (the CPU path and the kernel's
+    reference), by slice assignment; differentiable through its
+    closed-form VJP."""
+    return _CostVolume.apply(fl, fr, max_disp, _concat_volume, _concat_vjp)
+
+
+def cost_volume_correlation_torch(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> torch.Tensor:
+    """Plain PyTorch correlation volume (the CPU path and the kernel's
+    reference): products and mean in f32, rounded to fl's dtype;
+    differentiable through its closed-form VJP."""
+    return _CostVolume.apply(fl, fr, max_disp, _correlation_volume, _correlation_vjp)
 
 
 def cost_volume_concat(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> torch.Tensor:
@@ -128,7 +209,7 @@ def cost_volume_concat(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> tor
     version for CPU tensors. Differentiable. Counts its launches in
     ``.launches``."""
     _check(fl, fr)
-    return _CostVolume.apply(fl, fr, max_disp, _concat_forward, cost_volume_concat_torch)
+    return _CostVolume.apply(fl, fr, max_disp, _concat_forward, _concat_vjp)
 
 
 def cost_volume_correlation(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> torch.Tensor:
@@ -136,7 +217,7 @@ def cost_volume_correlation(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -
     version for CPU tensors. Differentiable. Counts its launches in
     ``.launches``."""
     _check(fl, fr)
-    return _CostVolume.apply(fl, fr, max_disp, _correlation_forward, cost_volume_correlation_torch)
+    return _CostVolume.apply(fl, fr, max_disp, _correlation_forward, _correlation_vjp)
 
 
 cost_volume_concat.launches = 0

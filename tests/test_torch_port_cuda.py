@@ -28,7 +28,9 @@ from ecm_torch.ops.cuda_gdeconv import deconv3d_bn, deconv3d_bn_torch
 from ecm_torch.ops.cuda_regression import (
     fused_upsample_softargmin,
     fused_upsample_softargmin_torch,
+    regression_plan,
 )
+from ecm_torch.ops.upsample import upsample_trilinear
 
 pytestmark = pytest.mark.cuda
 
@@ -264,3 +266,81 @@ def test_gband_input_grad_ragged(dev):
     dx = gband_conv_s1_input_grad(dy, wt)
     torch.cuda.synchronize()
     assert _rel(dx, gband_conv_s1_torch(dy, wt.flip(2, 3, 4).transpose(0, 1))) <= 2e-2
+
+
+# the redesigned regression at ragged shapes: D/4 = 1, H/4 = 1, W/4 not a
+# multiple of the plan's tile (several tiles, the last one partly idle)
+@pytest.mark.parametrize("shape", [(1, 1, 5, 37), (2, 12, 1, 9), (1, 48, 3, 100), (2, 6, 4, 37)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_regression_kernel_ragged(dev, shape, dtype):
+    b, d4, h4, w4 = shape
+    plan = regression_plan(*shape)
+    assert plan.tw % 8 == 0 and plan.blocks == b * h4 * -(-w4 // plan.tw)
+    g = torch.Generator().manual_seed(10)
+    c4 = torch.randn(*shape, generator=g).to(dev, dtype)
+    n = fused_upsample_softargmin.launches
+    out = fused_upsample_softargmin(c4, 4 * d4)
+    torch.cuda.synchronize()
+    assert fused_upsample_softargmin.launches == n + 1
+    assert out.shape == (b, 4 * h4, 4 * w4)
+    assert (out - fused_upsample_softargmin_torch(c4, 4 * d4)).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 7, 9), (1, 48, 3, 37)])
+def test_regression_kernel_hard_argmin(dev, shape):
+    """Costs scaled by 1e6 (random init gives 1e6-1e8): the softmax is a hard
+    argmin. The output is finite everywhere and equals the index of the
+    plain version's full-resolution minimum wherever that minimum leads the
+    next value by more than 1e3 (1e-3 of the scale; the two versions' values
+    differ by f32 roundings of 1e6, about 0.1), to 1e-4 px."""
+    b, d4, h4, w4 = shape
+    g = torch.Generator().manual_seed(11)
+    c4 = (torch.randn(*shape, generator=g) * 1e6).to(dev)
+    out = fused_upsample_softargmin(c4, 4 * d4)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    up = upsample_trilinear(c4, (4 * d4, 4 * h4, 4 * w4))
+    low = up.topk(2, dim=1, largest=False)
+    unique = (low.values[:, 1] - low.values[:, 0]) > 1e3
+    assert unique.float().mean() > 0.5
+    # the kernel's num / den is d * e / e with e = ex2(0): equal up to f32 rounding
+    torch.testing.assert_close(out[unique], low.indices[:, 0][unique].float(), rtol=0, atol=1e-4)
+
+
+# the redesigned correlation kernel (test_correlation_kernel above takes W
+# = 40, below the 64-column tile): W < D, and several tiles with a ragged
+# last one; f32 at C = 5, bf16 at C = 32
+@pytest.mark.parametrize("w,d", [(10, 24), (150, 48)], ids=["w_lt_d", "tiles"])
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 32), (torch.float32, 5)])
+def test_correlation_kernel_ragged(dev, dtype, c, w, d):
+    g = torch.Generator().manual_seed(12)
+    fl, fr = (torch.randn(2, 3, w, c, generator=g).to(dev, dtype) for _ in range(2))
+    n = cost_volume_correlation.launches
+    out = cost_volume_correlation(fl, fr, d)
+    torch.cuda.synchronize()
+    assert cost_volume_correlation.launches == n + 1
+    ref = cost_volume_correlation_torch(fl, fr, d)
+    assert out.shape == ref.shape == (2, d, 3, w, 1)
+    assert _rel(out, ref) <= (1e-2 if dtype == torch.bfloat16 else 1e-5)
+    mask = torch.arange(w, device=dev) < torch.arange(d, device=dev)[:, None]  # [D, W]: w < d
+    assert torch.count_nonzero(out[:, mask.nonzero()[:, 0], :, mask.nonzero()[:, 1]]) == 0
+
+
+def test_conv_core_cout1(dev):
+    """The tensor-core conv core at Cout = 1: ``conv3d_bn_s1`` 32 -> 1 and
+    the input gradient 32 -> 1 of ``gband_conv_s1`` (dres0_1 of the
+    correlation model, whose volume has one channel), at a ragged shape."""
+    assert conv_route("s1", torch.bfloat16, 32, 1) == "tensor_cores"
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(2, 5, 9, 37, 32, generator=g).to(dev, torch.bfloat16)
+    k = (torch.randn(1, 32, 3, 3, 3, generator=g) * 0.2).to(dev)
+    s, bb = (torch.rand(1, generator=g) + 0.5).to(dev), torch.randn(1, generator=g).to(dev)
+    out = conv3d_bn_s1(x, k, s, bb)
+    wt = (torch.randn(32, 1, 3, 3, 3, generator=g) * 0.2).to(dev, torch.bfloat16)
+    n = gband_conv_s1.backward_launches
+    dx = gband_conv_s1_input_grad(x, wt)
+    torch.cuda.synchronize()
+    assert gband_conv_s1.backward_launches == n + 1
+    assert out.shape == dx.shape == (2, 5, 9, 37, 1)
+    assert _rel(out, conv3d_bn_torch(x, k, s, bb)) <= 2e-2
+    assert _rel(dx, gband_conv_s1_torch(x, wt.flip(2, 3, 4).transpose(0, 1))) <= 2e-2

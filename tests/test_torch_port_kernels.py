@@ -16,6 +16,7 @@ from ecm_torch.ops.cuda_fused_agg import fused_conv3d_pair, fused_conv3d_pair_to
 from ecm_torch.ops.cuda_regression import (
     fused_upsample_softargmin,
     fused_upsample_softargmin_torch,
+    regression_plan,
 )
 from test_torch_port_util import t, to_torch_kernel
 
@@ -145,3 +146,26 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         fused_upsample_softargmin(torch.zeros(1, 3, 2, 2), 8)
     with pytest.raises(ValueError):
         cost_volume_concat(torch.zeros(1, 2, 3, 4), torch.zeros(1, 2, 3, 5), 2)
+
+
+@pytest.mark.parametrize(
+    "shape,tw",
+    [((1, 48, 96, 312), 24), ((8, 48, 96, 312), 24), ((4, 48, 64, 128), 64), ((2, 12, 7, 9), 16), ((1, 1, 1, 5), 8)],
+)
+def test_regression_plan(shape, tw):
+    """The regression kernel's tiling: 4 * tw threads in whole warps, the
+    fewest idle threads (none at the serving and training widths), its
+    shared memory of three staged f32 rows per plane; too many planes
+    raise."""
+    b, d4, h4, w4 = shape
+    plan = regression_plan(*shape)
+    tiles = -(-w4 // plan.tw)
+    assert plan.tw == tw and (4 * plan.tw) % 32 == 0
+    assert plan.blocks == b * h4 * tiles
+    assert plan.idle_threads == 4 * (tiles * plan.tw - w4) * b * h4
+    assert plan.smem_bytes == d4 * 3 * (plan.tw + 2) * 4
+    if w4 in (312, 128):
+        assert plan.idle_threads == 0
+    assert regression_plan(1, 1500, 2, 312).tw == 8
+    with pytest.raises(ValueError, match="shared memory"):
+        regression_plan(1, 2000, 2, 312)

@@ -1,8 +1,8 @@
 """The port's training slice against ``ecm_tpu.train`` on the CPU, f32, same
 numpy inputs and variables: loss and metrics, the optimizer against optax,
 and one whole train step (loss, predictions, every parameter gradient and
-the new BatchNorm statistics) of ``ECMStereo`` grouped and standard and of
-``ECMBasic``; ``remat``; the trainer end to end.
+the new BatchNorm statistics) of ``ECMStereo`` grouped and standard, of
+``ECMStereo`` on the correlation volume and of ``ECMBasic``; ``remat``; the trainer end to end.
 
 The whole-step cases run one 32x32 pair, with the BatchNorm shifts drawn in
 [1, 2]. At a size the CPU can afford, each 2D feature channel holds a few
@@ -65,6 +65,12 @@ MODELS = {
     "grouped": ("stackhourglass", dict(max_disp=64, feature_channels=32, agg_layout="grouped", remat=False), 40.0),
     "standard": ("stackhourglass", dict(max_disp=16, feature_channels=8, agg_layout="standard", remat=False), 12.0),
     "basic": ("basic", dict(max_disp=16, feature_channels=8), 12.0),
+    # the correlation volume: its closed-form VJP feeds the feature net
+    "correlation": (
+        "stackhourglass",
+        dict(max_disp=16, feature_channels=8, agg_layout="standard", remat=False, cost_mode="correlation"),
+        12.0,
+    ),
 }
 
 

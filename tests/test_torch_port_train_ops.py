@@ -106,6 +106,54 @@ def test_cost_volume_function_matches_pallas_vjp(mode):
     assert_close_rel(b.grad.numpy(), np.asarray(dfr), 1e-5)
     launches = cost_volume_concat.launches, cost_volume_correlation.launches
     assert launches == (0, 0)
+    assert not copy_slices(out.grad_fn)
+
+
+def copy_slices(fn) -> list[str]:
+    """The ``CopySlices`` nodes of the autograd graph below ``fn``."""
+    seen, stack, found = set(), [fn], []
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if "CopySlices" in node.name():
+            found.append(node.name())
+        stack.extend(f for f, _ in node.next_functions)
+    return found
+
+
+@pytest.mark.parametrize("mode", ["concat", "correlation"])
+@pytest.mark.parametrize("w,d", [(10, 6), (5, 8)], ids=["w10_d6", "w5_d8"])
+def test_plain_builder_vjp_is_closed_form(mode, w, d):
+    """The plain builder (``use_pallas=False``, training's default): a
+    graph with no ``CopySlices`` node (autograd copies no gradient volume),
+    its forward bit-identical to ``cost_volume_pallas`` (concat) or at rel
+    1e-6 (correlation, f32 sums in another order), and both feature
+    gradients equal to ``jax.vjp``'s at rel 1e-5 in f32, also where D > W;
+    in bf16, gradients summed in f32 and rounded once: the f32 result
+    rounded."""
+    rng = np.random.default_rng(5)
+    fl, fr = (rng.normal(size=(2, 3, w, 4)).astype(np.float32) for _ in range(2))
+    out_j, pull = jax.vjp(lambda a, b: cost_volume_pallas(a, b, d, mode=mode), jnp.asarray(fl), jnp.asarray(fr))
+    g = rng.normal(size=out_j.shape).astype(np.float32)
+    dfl, dfr = pull(jnp.asarray(g))
+
+    a, b = t(fl).requires_grad_(), t(fr).requires_grad_()
+    out = cost_volume(a, b, d, mode=mode)
+    assert out.grad_fn is not None and not copy_slices(out.grad_fn)
+    out.backward(t(g))
+    if mode == "concat":
+        assert torch.equal(out.detach(), torch.from_numpy(np.array(out_j)))
+    assert_close_rel(out.detach().numpy(), np.asarray(out_j), 1e-6)
+    assert_close_rel(a.grad.numpy(), np.asarray(dfl), 1e-5)
+    assert_close_rel(b.grad.numpy(), np.asarray(dfr), 1e-5)
+
+    ab, bb = t(fl).bfloat16().requires_grad_(), t(fr).bfloat16().requires_grad_()
+    cost_volume(ab, bb, d, mode=mode).backward(t(g).bfloat16())
+    af, bf = t(fl).bfloat16().float().requires_grad_(), t(fr).bfloat16().float().requires_grad_()
+    cost_volume(af, bf, d, mode=mode).backward(t(g).bfloat16().float())
+    assert torch.equal(ab.grad, af.grad.bfloat16()) and torch.equal(bb.grad, bf.grad.bfloat16())
 
 
 def _flax_bn(x: np.ndarray, scale, bias, mean, var, dy):
