@@ -47,7 +47,23 @@
    the same weights and batch, ms per step (median of 10), peak memory and
    a profiled step, whose device-to-device memcpy must stay under 1 ms (the
    cost volumes' closed-form VJP copies no gradient volume).
-5. Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+5. Runs the command-line drivers (``ecm_torch.cli``) in-process on files it
+   writes to a temporary directory, each with the launch counts set to 0
+   just before and read just after: ``train`` (``sceneflow_single``) on a
+   SceneFlow-layout tree of 8 pairs at 540x960 for 4 steps, then again to
+   step 6, which must auto-resume from step 4 and leave checkpoints 4 and 6
+   (``gband_conv_s1`` 7 + 7 launches a step, no eval kernel); ``finetune``
+   from that checkpoint on a KITTI 2015-layout tree (4 training pairs at
+   375x1242, uint16 ground truth) for 2 steps; ``evaluate`` on the KITTI
+   validation split (finite metrics; 4/3/3/1/1 launches of ``conv3d_bn_s1``
+   / ``_down`` / ``deconv3d_bn`` / the classif pair / the regression a pair,
+   plus 1 of the concat kernel with ``--pallas``); ``submission`` on the 4
+   test pairs (375x1242 uint16 PNGs, each within one code of the
+   disparity computed here with the same weights); and ``test_img
+   --synthetic`` as a subprocess with no device flag. It reports the train
+   CLI's pairs/s, the DataLoader's own rate, the checkpoint's size and its
+   save and restore times, and the submission's ms a pair.
+6. Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits nonzero without the last line.
@@ -56,29 +72,44 @@ It needs a CUDA device and the rest of the repository beside it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ecm_torch.cli import common as cli_common
+from ecm_torch.cli import evaluate as cli_evaluate
+from ecm_torch.cli import finetune as cli_finetune
+from ecm_torch.cli import submission as cli_submission
+from ecm_torch.cli import train as cli_train
 from ecm_torch.configs import CONFIGS
 from ecm_torch.configs.base import SLICE2_OVERRIDES, SLICE_OVERRIDES, TRAIN_SLICE
-from ecm_torch.data import make_batch
+from ecm_torch.data import kitti, make_batch, make_pair, write_pfm
+from ecm_torch.data.pipeline import PipelineConfig, make_train_pipeline
+from ecm_torch.data.preprocess import unpad
+from ecm_torch.data.sceneflow import list_sceneflow
+from ecm_torch.data.sceneflow import load_sample as sceneflow_load_sample
 from ecm_torch.kernels import build
 from ecm_torch.ops import cuda_cost_volume as cvk
 from ecm_torch.ops import cuda_fused_agg as pairk
 from ecm_torch.ops import cuda_gband as gbk
 from ecm_torch.ops import cuda_gdeconv as gdk
 from ecm_torch.ops import cuda_regression as regk
+from ecm_torch.train import checkpoint as ckpt_lib
 from ecm_torch.train.loop import to_device, train_loop
 from ecm_torch.train.loss import stereo_loss
 from ecm_torch.train.state import create_train_state, make_optimizer
@@ -92,6 +123,10 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 on the CUDA cores
 SFU_PER_CLOCK_PER_SM, SMS = 16, 132
 RUNS = 10
+# torch.profiler once returned none of the 10 correlation kernels of a window
+# whose output had just been checked (H100, torch 2.11): device_ms profiles a
+# window again when it misses some of the calls' kernels
+PROFILE_ATTEMPTS = 3
 PAIR_REL_TOL = 2e-2  # max|diff| / max|ref| in bf16 (tests/test_fused_agg.py:81); also the conv kernels
 REGRESSION_TOL_PX = 1e-3
 COST4_REL_TOL = 3e-2  # bf16 network, rounded at other places (9.9e-3 measured on an H100)
@@ -184,14 +219,16 @@ def device_ms(fn, symbol: str, runs: int = RUNS) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in device_events(prof) if symbol in e.name]
-    if len(events) != runs:
-        raise AssertionError(f"profiled {len(events)} {symbol} kernels for {runs} calls")
-    return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / runs
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in device_events(prof) if symbol in e.name]
+        if len(events) == runs:
+            return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / runs
+        log(f"  device_ms: profiled {len(events)} {symbol} kernels for {runs} calls (attempt {attempt})")
+    raise AssertionError(f"profiled {len(events)} {symbol} kernels for {runs} calls, {PROFILE_ATTEMPTS} times")
 
 
 def device_total_ms(fn, runs: int = RUNS) -> float:
@@ -907,6 +944,249 @@ def train(card: str) -> dict:
     )
 
 
+# the cli phase: a SceneFlow-layout tree (train) and a KITTI 2015-layout
+# tree (finetune on training/, evaluate on its validation split, submission
+# on testing/)
+CLI_SF_PAIRS, CLI_SF_SIZE = 8, (540, 960)
+CLI_KITTI_PAIRS, CLI_KITTI_SIZE = 4, (375, 1242)
+CLI_TRAIN_STEPS, CLI_RESUME_STEPS, CLI_FINETUNE_STEPS = 4, 6, 2
+# the grouped eval path's launches a pair (evaluate, submission); --pallas
+# adds the concat kernel
+CLI_EVAL_PER_PAIR = dict(conv3d_bn_s1=4, conv3d_bn_down=3, deconv3d_bn=3, fused_conv3d_pair=1,
+                         fused_upsample_softargmin=1)
+SUBMISSION_TOL_CODES = 1  # uint16 codes, 1/256 px
+
+
+def _uint8(img: np.ndarray) -> np.ndarray:
+    return np.clip(np.round(img), 0, 255).astype(np.uint8)
+
+
+def write_cli_trees(root: Path) -> tuple[str, str]:
+    """SceneFlow (``frames_cleanpass``, PFM disparities) and KITTI 2015
+    (``training/`` with uint16 ``disp_occ_0``, ``testing/``) trees of
+    synthetic stereo pairs (``make_pair``, seeded) under ``root``."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    sf = root / "sceneflow"
+    for i in range(CLI_SF_PAIRS):
+        s = make_pair(rng, *CLI_SF_SIZE, max_disp=60.0, normalized=False)
+        frames = sf / "frames_cleanpass" / "TRAIN" / "A" / "0000"
+        disp_dir = sf / "disparity" / "TRAIN" / "A" / "0000" / "left"
+        for side in ("left", "right"):
+            (frames / side).mkdir(parents=True, exist_ok=True)
+            Image.fromarray(_uint8(s[side])).save(frames / side / f"{i:04d}.png")
+        disp_dir.mkdir(parents=True, exist_ok=True)
+        write_pfm(str(disp_dir / f"{i:04d}.pfm"), s["disparity"])
+    kt = root / "kitti"
+    for split in ("training", "testing"):
+        for i in range(CLI_KITTI_PAIRS):
+            s = make_pair(rng, *CLI_KITTI_SIZE, max_disp=60.0, normalized=False)
+            name = f"{i:06d}_10.png"
+            for side, sub in (("left", "image_2"), ("right", "image_3")):
+                (kt / split / sub).mkdir(parents=True, exist_ok=True)
+                Image.fromarray(_uint8(s[side])).save(kt / split / sub / name)
+            if split == "training":
+                (kt / split / "disp_occ_0").mkdir(parents=True, exist_ok=True)
+                kitti.save_disp_png(str(kt / split / "disp_occ_0" / name), s["disparity"])
+    return str(sf), str(kt)
+
+
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.copy = out, io.StringIO()
+
+    def write(self, text: str) -> int:
+        self.copy.write(text)
+        return self.out.write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def drive(name: str, cli, argv: list[str], expected: dict) -> tuple[dict, str]:
+    """``cli.main(argv)`` in-process, the launch counts set to 0 just before
+    and read just after and held to ``expected`` (0 for a kernel not named).
+    Returns ({launches, wall_s}, what it printed)."""
+    log(f"  cli {name}: python -m {cli.__name__} {' '.join(argv)}")
+    tee = _Tee(sys.stdout)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    want = {k: expected.get(k, 0) for k in COUNTERS}
+    if launches != want:
+        raise AssertionError(f"cli {name}: launches {launches}, expected {want}")
+    return dict(launches=launches, wall_s=wall), tee.copy.getvalue()
+
+
+def _steps(n: int) -> dict:
+    return dict(gband_conv_s1=7 * n, gband_conv_s1_input_grad=7 * n)
+
+
+def _pairs(n: int, pallas: bool = False) -> dict:
+    per = dict(CLI_EVAL_PER_PAIR, cost_volume_concat=1) if pallas else CLI_EVAL_PER_PAIR
+    return {k: v * n for k, v in per.items()}
+
+
+def loader_rate(specs: list, batches: int = 24) -> dict:
+    """The train pipeline alone at the preset's batch, crop and workers: the
+    time to its first batch (worker start-up) and the pairs/s it delivers
+    after that."""
+    data = CONFIGS[TRAIN_SLICE].data
+    t0 = time.perf_counter()
+    it = make_train_pipeline(specs, sceneflow_load_sample, PipelineConfig(
+        batch_size=data.global_batch, crop=data.crop, seed=1, num_workers=data.workers))
+    next(it)
+    t1 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    t2 = time.perf_counter()
+    del it
+    return dict(workers=data.workers, first_batch_s=t1 - t0, pairs_per_s=batches * data.global_batch / (t2 - t1))
+
+
+def checkpoint_times(ck: str, repeats: int = 3) -> dict:
+    """The size of the newest checkpoint in ``ck``, and the median time to
+    restore it into a fresh ``kitti_infer`` state on the card and to save
+    that state again (to another directory)."""
+    cfg = cli_common.resolve_config(cli_common.base_parser("").parse_args([]), "kitti_infer")
+    manager = ckpt_lib.make_manager(ck)
+    size = os.path.getsize(manager.path(manager.latest_step()))
+    restores, saves = [], []
+    with tempfile.TemporaryDirectory(prefix="ecm_ckpt_") as tmp:
+        out = ckpt_lib.make_manager(tmp)
+        for i in range(repeats):
+            state = cli_common.build_state(cfg, None, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = ckpt_lib.restore_latest(manager, state)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ckpt_lib.save(out, i + 1, state)
+            saves.append(time.perf_counter() - t1)
+            restores.append(t1 - t0)
+            del state
+    return dict(bytes=size, restore_ms=statistics.median(restores) * 1e3, save_ms=statistics.median(saves) * 1e3,
+                restore_runs_ms=[r * 1e3 for r in restores], save_runs_ms=[v * 1e3 for v in saves])
+
+
+def check_submission(kt: str, ck: str, outdir: Path) -> float:
+    """Each submission PNG against ``encode_disp_png`` of the unpadded
+    disparity computed here on the same pair with the same restored weights:
+    at most ``SUBMISSION_TOL_CODES`` apart. Returns the largest difference."""
+    from PIL import Image
+
+    cfg = cli_common.resolve_config(cli_common.base_parser("").parse_args([]), "kitti_infer")
+    state, _ = cli_common.restore(cli_common.build_state(cfg, None, 0), ck)
+    specs, _ = kitti.list_kitti(kt, split="testing")
+    if len(specs) != CLI_KITTI_PAIRS:
+        raise AssertionError(f"submission: {len(specs)} test pairs listed")
+    worst = 0
+    with torch.inference_mode():
+        state.model.eval()
+        for spec in specs:
+            png = np.asarray(Image.open(outdir / os.path.basename(spec.left)))
+            if png.dtype != np.uint16 or png.shape != CLI_KITTI_SIZE:
+                raise AssertionError(f"submission: {spec.left}: PNG {png.dtype} {png.shape}")
+            sample = kitti.load_sample(spec, crop=None)
+            left, right = (torch.from_numpy(sample[k])[None].cuda() for k in ("left", "right"))
+            disp = state.model(left, right)[0][0].float().cpu().numpy()
+            want = kitti.encode_disp_png(unpad(disp, tuple(sample["pads"])))
+            worst = max(worst, int(np.abs(png.astype(np.int32) - want).max()))
+    if worst > SUBMISSION_TOL_CODES:
+        raise AssertionError(f"submission PNGs differ from the in-process disparity by {worst} codes")
+    del state
+    return worst
+
+
+def cli_phase(card: str) -> dict:
+    """The command-line drivers on files in a temporary directory (see the
+    module's docstring, item 5)."""
+    t_phase = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="ecm_cli_") as tmp:
+        root = Path(tmp)
+        sf, kt = write_cli_trees(root)
+        specs, _ = list_sceneflow(sf)
+        if len(specs) != CLI_SF_PAIRS:
+            raise AssertionError(f"list_sceneflow found {len(specs)} pairs, wrote {CLI_SF_PAIRS}")
+        ck, ck2, outdir = str(root / "ck"), str(root / "ck2"), root / "disp_0"
+
+        train_args = ["--config", TRAIN_SLICE, "--datapath", sf, "--savemodel", ck]
+        runs["cli_train"], out = drive("train", cli_train, [*train_args, "--steps", str(CLI_TRAIN_STEPS)],
+                                       _steps(CLI_TRAIN_STEPS))
+        runs["cli_train_resume"], out = drive(
+            "train (resume)", cli_train, [*train_args, "--steps", str(CLI_RESUME_STEPS)],
+            _steps(CLI_RESUME_STEPS - CLI_TRAIN_STEPS))
+        if f"auto-resumed from step {CLI_TRAIN_STEPS}" not in out:
+            raise AssertionError("train did not auto-resume from its checkpoint")
+        if ckpt_lib.make_manager(ck).all_steps() != [CLI_TRAIN_STEPS, CLI_RESUME_STEPS]:
+            raise AssertionError(f"train checkpoints {ckpt_lib.make_manager(ck).all_steps()}")
+        logged = [json.loads(line) for line in Path(ck, "metrics.jsonl").read_text().splitlines()]
+        if [m["step"] for m in logged] != [CLI_TRAIN_STEPS, CLI_RESUME_STEPS] or not all(
+                math.isfinite(m["loss"]) for m in logged):
+            raise AssertionError(f"train metrics {logged}")
+        runs["cli_train"]["logged"] = logged[0]
+        runs["cli_train_resume"]["logged"] = logged[1]
+        loader = loader_rate(specs)
+
+        runs["cli_finetune"], out = drive("finetune", cli_finetune, [
+            "--datapath", kt, "--loadmodel", ck, "--steps", str(CLI_FINETUNE_STEPS), "--batch", "4",
+            "--savemodel", ck2], _steps(CLI_FINETUNE_STEPS))
+        if f"loaded pretrained weights (step {CLI_RESUME_STEPS})" not in out:
+            raise AssertionError("finetune did not load the train checkpoint")
+        ckpt = checkpoint_times(ck2)
+
+        _, val = kitti.list_kitti(kt)
+        for name, extra in (("cli_evaluate", []), ("cli_evaluate_pallas", ["--pallas"])):
+            runs[name], out = drive(name[4:], cli_evaluate, [
+                "--dataset", "kitti2015", "--datapath", kt, "--loadmodel", ck2, *extra], _pairs(len(val), bool(extra)))
+            metrics = json.loads(out.strip().splitlines()[-1])
+            if metrics.get("num_pairs") != len(val) or not all(math.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"evaluate metrics {metrics}")
+            runs[name]["metrics"] = metrics
+
+        runs["cli_submission"], out = drive("submission", cli_submission, [
+            "--datapath", kt, "--loadmodel", ck2, "--outdir", str(outdir)], _pairs(CLI_KITTI_PAIRS))
+        ms = [float(line.split()[-2]) for line in out.splitlines() if line.endswith(" ms")]
+        if len(ms) != CLI_KITTI_PAIRS:
+            raise AssertionError(f"submission printed {len(ms)} times for {CLI_KITTI_PAIRS} pairs")
+        runs["cli_submission"].update(ms_per_pair=statistics.median(ms), runs_ms=ms,
+                                      max_codes_off=check_submission(kt, ck2, outdir))
+
+        t0 = time.perf_counter()
+        demo = subprocess.run(
+            [sys.executable, "-m", "ecm_torch.cli.test_img", "--synthetic", "--loadmodel", ck2,
+             "--out", str(root / "d.png")],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=300,
+        )
+        log(f"  cli test_img (subprocess, no --device): exit {demo.returncode}; {demo.stdout.strip()[-300:]}")
+        if demo.returncode != 0 or not (root / "d.png").exists():
+            raise AssertionError(f"test_img exited {demo.returncode}: {demo.stderr[-2000:]}")
+        runs["cli_test_img"] = dict(wall_s=time.perf_counter() - t0, stdout=demo.stdout.strip()[-300:])
+
+    wall = time.perf_counter() - t_phase
+    pairs = CONFIGS[TRAIN_SLICE].data.global_batch
+    log(f"phase cli: train CLI {runs['cli_train']['logged']['pairs_per_s']:.2f} pairs/s over steps "
+        f"1-{CLI_TRAIN_STEPS} and {runs['cli_train_resume']['logged']['pairs_per_s']:.2f} pairs/s over steps "
+        f"{CLI_TRAIN_STEPS + 1}-{CLI_RESUME_STEPS} (batch {pairs}, start-up included) [{card}]")
+    log(f"phase cli: DataLoader alone {loader['pairs_per_s']:.2f} pairs/s with {loader['workers']} workers, "
+        f"first batch after {loader['first_batch_s']:.2f} s [{card}]")
+    log(f"phase cli: checkpoint {ckpt['bytes']} bytes, save {ckpt['save_ms']:.1f} ms, restore "
+        f"{ckpt['restore_ms']:.1f} ms (median of 3) [{card}]")
+    log(f"phase cli: submission {runs['cli_submission']['ms_per_pair']:.2f} ms a pair (median of "
+        f"{CLI_KITTI_PAIRS}, host arrays to host disparity) [{card}]")
+    log(f"phase cli: wall {wall:.1f} s [{card}]")
+    return dict(card=card, runs=runs, loader=loader, checkpoint=ckpt, wall_s=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -975,15 +1255,18 @@ def main() -> int:
     trained = train(card)
     log(f"phase train {TRAIN_SLICE} [{card}]: " + json.dumps(trained))
     paths["train_sceneflow_single"] = trained
+    cli = cli_phase(card)
+    log("phase cli [" + card + "]: " + json.dumps(cli))
+    paths.update(cli["runs"])
     # launches: each kernel's count on its main path (the grouped serving
     # path runs the six slice-1/2 kernels, basic_correlation the correlation
     # kernel, the train path gband_conv_s1: forwards + input gradients)
     main_path = {"cost_volume_correlation": "basic_correlation", "gband_conv_s1": "train_sceneflow_single"}
     for k in kernels:
-        by_path = {p: r["launches"][k["name"]] for p, r in paths.items()}
+        by_path = {p: r["launches"][k["name"]] for p, r in paths.items() if "launches" in r}
         if k["name"] == "gband_conv_s1":
-            for p, r in paths.items():
-                by_path[p] += r["launches"]["gband_conv_s1_input_grad"]
+            for p in by_path:
+                by_path[p] += paths[p]["launches"]["gband_conv_s1_input_grad"]
             k["launches_forward"] = trained["launches"]["gband_conv_s1"]
             k["launches_input_grad"] = trained["launches"]["gband_conv_s1_input_grad"]
         k["launches"] = by_path[main_path.get(k["name"], "slice2_grouped")]

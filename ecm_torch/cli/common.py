@@ -1,0 +1,215 @@
+"""Shared plumbing of the command-line drivers (port of
+``ecm_tpu/cli/common.py``): the reference's flags (``--maxdisp``,
+``--model``, ``--datapath``, ``--loadmodel``, ``--savemodel``, ``--seed``),
+preset resolution and the train-data iterator.
+
+Intended differences from the JAX package:
+- ``--device`` (default ``cuda``, which raises without a GPU) lets a caller
+  run on the CPU;
+- ``--pallas`` keeps its name and selects the CUDA cost-volume kernel, as
+  ``ModelConfig.use_pallas`` does in the port;
+- ``--debug-nans`` turns on ``torch.autograd``'s anomaly detection;
+- one process drives one card: ``--multihost`` and a disparity mesh
+  (``--mesh-disp`` above 1) raise until the parallel slice (ROADMAP queue 1,
+  "parallel") lands;
+- no compile-cache settings: the kernel build cache in ``build/`` is their
+  counterpart.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import torch
+
+from ecm_torch.configs import CONFIGS, ExperimentConfig
+
+NOT_PORTED = "not ported yet (ROADMAP queue 1, parallel: DDP + SyncBatchNorm and the disparity halo exchange)"
+
+
+def base_parser(description: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--config", default=None, help="named preset from ecm_torch.configs")
+    p.add_argument("--maxdisp", type=int, default=192)
+    p.add_argument("--model", default="stackhourglass", choices=["stackhourglass", "basic"])
+    p.add_argument("--datapath", default="")
+    p.add_argument("--epochs", type=int, default=None, help="epochs (converted to steps)")
+    p.add_argument("--steps", type=int, default=None, help="train steps (overrides epochs)")
+    p.add_argument("--batch", type=int, default=None, help="global batch size")
+    p.add_argument("--loadmodel", default=None, help="checkpoint dir to restore")
+    p.add_argument("--savemodel", default="checkpoints", help="checkpoint dir")
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--no-bf16", action="store_true", help="compute in f32")
+    p.add_argument("--pallas", action="store_true", help="use the CUDA cost-volume kernel")
+    p.add_argument(
+        "--regress-mode",
+        default=None,
+        choices=["auto", "fullres", "fused", "lowres"],
+        help="disparity regression path (auto = the fused CUDA kernel on a GPU at eval)",
+    )
+    p.add_argument(
+        "--agg-layout",
+        default=None,
+        choices=["auto", "standard", "grouped"],
+        help="aggregation dispatch (auto = grouped layer kernels on a GPU)",
+    )
+    p.add_argument(
+        "--agg-fused",
+        default=None,
+        choices=["off", "auto", "on"],
+        help="standard-layout fused CUDA conv pairs (eval only)",
+    )
+    p.add_argument("--mesh-disp", type=int, default=None, help=f"disp-axis mesh size ({NOT_PORTED} above 1)")
+    p.add_argument("--multihost", action="store_true", help=f"multi-process training ({NOT_PORTED})")
+    p.add_argument(
+        "--debug-nans",
+        action="store_true",
+        help="torch.autograd anomaly detection: fail fast on NaN",
+    )
+    p.add_argument("--tensorboard", default=None, help="TensorBoard logdir")
+    p.add_argument("--device", default=None, help="device to run on (default: cuda; raises without a GPU)")
+    return p
+
+
+def resolve_config(args, default_preset: str) -> ExperimentConfig:
+    cfg = CONFIGS[args.config or default_preset]
+    model = dataclasses.replace(
+        cfg.model,
+        name=args.model,
+        max_disp=args.maxdisp,
+        bf16=cfg.model.bf16 and not args.no_bf16,
+        use_pallas=args.pallas or cfg.model.use_pallas,
+        regress_mode=args.regress_mode or cfg.model.regress_mode,
+        agg_layout=args.agg_layout or cfg.model.agg_layout,
+        agg_fused=args.agg_fused or cfg.model.agg_fused,
+    )
+    data = dataclasses.replace(
+        cfg.data,
+        datapath=args.datapath or cfg.data.datapath,
+        global_batch=args.batch or cfg.data.global_batch,
+        seed=args.seed,
+    )
+    train = cfg.train
+    if args.steps is not None:
+        train = dataclasses.replace(train, num_steps=args.steps)
+    elif args.epochs is not None:
+        # resolved to steps once the dataset is listed (train CLIs call
+        # steps_from_epochs with the sample count make_data_iter returns)
+        train = dataclasses.replace(train, epochs=args.epochs)
+    if args.lr is not None:
+        train = dataclasses.replace(train, lr=args.lr)
+    if args.mesh_disp is not None:
+        train = dataclasses.replace(train, mesh_disp=args.mesh_disp)
+    train = dataclasses.replace(train, ckpt_dir=args.savemodel)
+    return ExperimentConfig(model=model, data=data, train=train)
+
+
+def maybe_init_distributed(args) -> None:
+    if getattr(args, "multihost", False):
+        raise NotImplementedError(f"--multihost: {NOT_PORTED}")
+    if getattr(args, "debug_nans", False):
+        torch.autograd.set_detect_anomaly(True)
+
+
+def make_mesh_from(cfg: ExperimentConfig):
+    """The training mesh: None, since one process trains on one card (the
+    JAX package's answer on one device). A disparity mesh raises."""
+    if cfg.train.mesh_disp > 1:
+        raise NotImplementedError(f"--mesh-disp {cfg.train.mesh_disp}: {NOT_PORTED}")
+    return None
+
+
+def eval_mesh(cfg: ExperimentConfig):
+    """The disparity-sharded eval mesh: None for ``mesh_disp <= 1``; above
+    that it raises."""
+    return make_mesh_from(cfg)
+
+
+def make_data_iter(cfg: ExperimentConfig):
+    """The train-data iterator of ``cfg.data.dataset``.
+
+    Returns ``(iterator, n_samples)``; ``n_samples`` is None for unbounded
+    synthetic streams (used by ``steps_from_epochs``).
+    """
+    from ecm_torch.data.pipeline import PipelineConfig, make_synthetic_pipeline
+
+    pcfg = PipelineConfig(
+        batch_size=cfg.data.global_batch,
+        crop=cfg.data.crop,
+        seed=cfg.data.seed,
+        num_workers=cfg.data.workers,
+    )
+    ds = cfg.data.dataset
+    if ds == "synthetic":
+        h, w = cfg.data.crop
+        it = make_synthetic_pipeline(
+            pcfg,
+            h=h,
+            w=w,
+            max_disp=min(cfg.model.max_disp * 0.8, 40.0),
+            distinct=cfg.data.synthetic_distinct,
+        )
+        return it, None
+    from ecm_torch.data.pipeline import make_train_pipeline
+
+    if ds == "sceneflow":
+        from ecm_torch.data.sceneflow import list_sceneflow, load_sample
+
+        train, _ = list_sceneflow(cfg.data.datapath)
+        if not train:
+            raise FileNotFoundError(f"no SceneFlow samples under {cfg.data.datapath!r}")
+        return make_train_pipeline(train, load_sample, pcfg), len(train)
+    if ds in ("kitti2015", "kitti2012"):
+        from ecm_torch.data.kitti import list_kitti, load_sample
+
+        year = 2015 if ds.endswith("15") else 2012
+        train, _ = list_kitti(cfg.data.datapath, year=year)
+        if not train:
+            raise FileNotFoundError(f"no KITTI samples under {cfg.data.datapath!r}")
+        return make_train_pipeline(train, load_sample, pcfg), len(train)
+    if ds == "middlebury":
+        from ecm_torch.data.middlebury import list_middlebury, load_sample
+
+        train, _ = list_middlebury(cfg.data.datapath)
+        if not train:
+            raise FileNotFoundError(f"no Middlebury scenes under {cfg.data.datapath!r}")
+        return make_train_pipeline(train, load_sample, pcfg), len(train)
+    raise ValueError(f"unknown dataset {ds!r}")
+
+
+def steps_from_epochs(cfg: ExperimentConfig, n_samples: int | None) -> int:
+    """The step budget: ``num_steps`` unless ``--epochs`` was given, then
+    epochs * floor(dataset / global_batch) (the reference's epoch loop over
+    a drop-last DataLoader)."""
+    if cfg.train.epochs is None:
+        return cfg.train.num_steps
+    if n_samples is None:
+        raise ValueError(
+            "--epochs needs a finite dataset; synthetic streams are unbounded "
+            "— use --steps instead"
+        )
+    steps_per_epoch = max(1, n_samples // cfg.data.global_batch)
+    return cfg.train.epochs * steps_per_epoch
+
+
+def build_state(cfg: ExperimentConfig, device: str | None, seed: int, tx=None):
+    """The model of ``cfg`` on ``device`` (None: cuda), initialised from
+    ``seed``, in a train state with optimizer ``tx`` (default Adam)."""
+    from ecm_torch.train.state import create_train_state
+
+    model = cfg.model.build(device=device, generator=torch.Generator().manual_seed(seed))
+    return create_train_state(model, tx)
+
+
+def restore(state, loadmodel: str | None):
+    """``state`` with the newest checkpoint of ``loadmodel`` loaded (as is
+    without one), and its step."""
+    from ecm_torch.train import checkpoint as ckpt_lib
+
+    if not loadmodel:
+        return state, 0
+    state, step0 = ckpt_lib.restore_latest(ckpt_lib.make_manager(loadmodel), state)
+    print(f"loaded checkpoint step {step0}")
+    return state, step0

@@ -1,6 +1,8 @@
-"""Image normalisation (the part of ``ecm_tpu/data/preprocess.py`` the
-trainer needs now): uint8 or [0, 255] float ``[H, W, 3]`` -> ImageNet-
-normalised float32, channels last, numpy only."""
+"""Preprocessing (port of ``ecm_tpu/data/preprocess.py``), numpy only:
+ImageNet normalisation to channels-last float32, and the crop and pad
+geometry of the readers: random train crops, and eval pads on the top and
+the right (the reference KITTI submission's convention), so that the valid
+region stays bottom-left aligned."""
 
 from __future__ import annotations
 
@@ -20,3 +22,44 @@ def normalize(img: np.ndarray) -> np.ndarray:
         img = img[..., :3]
     img = img / 255.0
     return (img - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def random_crop(
+    rng: np.random.Generator,
+    arrays: list[np.ndarray],
+    crop_h: int,
+    crop_w: int,
+) -> list[np.ndarray]:
+    """Crop the same random window from each array (images + disparity):
+    the top row, then the left column, drawn from ``rng``."""
+    h, w = arrays[0].shape[:2]
+    if h < crop_h or w < crop_w:
+        raise ValueError(f"image {h}x{w} < crop {crop_h}x{crop_w}")
+    y = int(rng.integers(0, h - crop_h + 1))
+    x = int(rng.integers(0, w - crop_w + 1))
+    return [a[y : y + crop_h, x : x + crop_w] for a in arrays]
+
+
+def pad_to_multiple(
+    img: np.ndarray, multiple: int = 16, target: tuple[int, int] | None = None
+) -> tuple[np.ndarray, tuple[int, int]]:
+    """Pad H (top) and W (right) with zeros to ``target`` or to the next
+    multiple of ``multiple``. Returns (padded, (pad_top, pad_right))."""
+    h, w = img.shape[:2]
+    if target is not None:
+        th, tw = target
+    else:
+        th = -(-h // multiple) * multiple
+        tw = -(-w // multiple) * multiple
+    if th < h or tw < w:
+        raise ValueError(f"target {th}x{tw} smaller than image {h}x{w}")
+    pad_top, pad_right = th - h, tw - w
+    pad_spec = [(pad_top, 0), (0, pad_right)] + [(0, 0)] * (img.ndim - 2)
+    return np.pad(img, pad_spec, mode="constant"), (pad_top, pad_right)
+
+
+def unpad(disp: np.ndarray, pads: tuple[int, int]) -> np.ndarray:
+    """Undo ``pad_to_multiple`` on a [H, W] disparity map."""
+    pad_top, pad_right = pads
+    w = disp.shape[1]
+    return disp[pad_top:, : w - pad_right if pad_right else w]

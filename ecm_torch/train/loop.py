@@ -1,7 +1,7 @@
 """Training loop (port of ``ecm_tpu/train/loop.py``): steps over a batch
-iterator, metrics to stdout and JSONL every ``log_every`` steps, with the JAX
-package's log line. Checkpoints and TensorBoard are not ported yet (ROADMAP
-queue 1: "checkpoint and writers") and raise.
+iterator, metrics to stdout, JSONL and TensorBoard every ``log_every`` steps
+with the JAX package's log line, a checkpoint every ``ckpt_every`` steps and
+one at the end, resuming from ``state.step``.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ecm_torch.train import checkpoint as ckpt_lib
 from ecm_torch.train.state import TrainState
 
 BATCH_KEYS = ("left", "right", "disparity")
@@ -31,19 +32,23 @@ def train_loop(
     num_steps: int,
     log_every: int = 20,
     ckpt_manager=None,
+    ckpt_every: int = 1000,
     metrics_path: str | None = None,
     eval_fn: Callable[[TrainState, int], dict] | None = None,
     eval_every: int = 0,
     tensorboard_dir: str | None = None,
 ) -> TrainState:
     """Run steps ``state.step .. num_steps - 1``; batches go to the model's
-    device. Returns the state."""
-    if ckpt_manager is not None:
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP queue 1, checkpoint and writers)")
-    if tensorboard_dir:
-        raise NotImplementedError("TensorBoard writers are not ported yet (ROADMAP queue 1, checkpoint and writers)")
+    device. With ``ckpt_manager``: a checkpoint every ``ckpt_every`` steps
+    and one at ``num_steps``, each step number saved once. Returns the
+    state."""
     device = next(state.model.parameters()).device
     log_f = open(metrics_path, "a") if metrics_path else None
+    tb = None
+    if tensorboard_dir:
+        from ecm_torch.train.writers import MetricWriter
+
+        tb = MetricWriter(logdir=tensorboard_dir)
     t0 = time.perf_counter()
     window_images = 0
     try:
@@ -68,15 +73,23 @@ def train_loop(
                 if log_f:
                     log_f.write(json.dumps(m) + "\n")
                     log_f.flush()
+                if tb is not None:
+                    tb.write(step + 1, m)
                 t0 = time.perf_counter()
                 window_images = 0
+            if ckpt_manager is not None and (step + 1) % ckpt_every == 0:
+                ckpt_lib.save(ckpt_manager, step + 1, state)
             if eval_fn is not None and eval_every and (step + 1) % eval_every == 0:
                 eval_metrics = eval_fn(state, step + 1)
                 print(f"eval @ {step + 1}: {eval_metrics}", flush=True)
                 if log_f:
                     log_f.write(json.dumps({"step": step + 1, "eval": eval_metrics}) + "\n")
                     log_f.flush()
+        if ckpt_manager is not None and num_steps not in ckpt_manager.all_steps():
+            ckpt_lib.save(ckpt_manager, num_steps, state)
     finally:
         if log_f:
             log_f.close()
+        if tb is not None:
+            tb.close()
     return state

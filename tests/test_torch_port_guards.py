@@ -1,5 +1,6 @@
-"""Guards of the port: it never imports the JAX package, and its entry
-points refuse to fall back to the CPU when no GPU is present."""
+"""Guards of the port: it never imports the JAX package (nor grain, orbax,
+clu or TensorFlow), and its entry points, the CLIs among them, refuse to
+fall back to the CPU when no GPU is present."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,15 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "ecm_tpu")
+FORBIDDEN = ("jax", "flax", "ecm_tpu", "grain", "orbax", "clu", "tensorflow")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    from test_torch_port_util import torch_threads
+
+    with torch_threads(1):
+        yield
 
 
 def _port_sources():
@@ -47,13 +56,14 @@ def test_build_model_without_gpu_raises(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """What is still to port raises: the trainer's checkpoints and TensorBoard
-    writers. What the training slice ported runs: the
-    training forward of both models (3 and 1 predictions) and the
-    correlation volume with ``use_pallas=True``."""
+    """What is still to port raises: multi-process training and the
+    disparity mesh (ROADMAP queue 1, parallel). What earlier slices ported
+    runs: the training forward of both models (3 and 1 predictions), the
+    correlation volume with ``use_pallas=True``, and the trainer with
+    checkpoints."""
+    from ecm_torch.cli import common
+    from ecm_torch.configs import CONFIGS
     from ecm_torch.models import build_model
-    from ecm_torch.train.loop import train_loop
-    from ecm_torch.train.state import create_train_state
 
     images = (torch.zeros(1, 32, 48, 3), torch.zeros(1, 32, 48, 3))
     for name, n in (("stackhourglass", 3), ("basic", 1)):
@@ -63,11 +73,36 @@ def test_unported_paths_raise():
     m = build_model(device="cpu", max_disp=16, feature_channels=8, cost_mode="correlation", use_pallas=True)
     with torch.inference_mode():
         assert m(*images)[0].shape == (1, 32, 48)
-    state = create_train_state(m)
-    for kw, match in ((dict(ckpt_manager=object()), "checkpoint"),
-                      (dict(tensorboard_dir="tb"), "TensorBoard")):
-        with pytest.raises(NotImplementedError, match=match):
-            train_loop(state, None, iter(()), 1, **kw)
+    with pytest.raises(NotImplementedError, match="parallel"):
+        common.maybe_init_distributed(common.base_parser("").parse_args(["--multihost"]))
+    for argv in (["--mesh-disp", "2"], ["--config", "middlebury_disp_sharded"]):
+        cfg = common.resolve_config(common.base_parser("").parse_args(argv), "kitti_infer")
+        with pytest.raises(NotImplementedError, match="parallel"):
+            common.eval_mesh(cfg)
+        with pytest.raises(NotImplementedError, match="parallel"):
+            common.make_mesh_from(cfg)
+    assert common.make_mesh_from(CONFIGS["sceneflow_single"]) is None
+
+
+@pytest.mark.parametrize("cli", ["train", "finetune", "evaluate", "submission", "test_img"])
+def test_cli_without_gpu_raises(cli, monkeypatch, tmp_path):
+    """Each CLI's ``main`` with no ``--device`` runs on cuda, so with no GPU
+    it raises before it trains or serves."""
+    import importlib
+
+    from test_torch_port_util import write_kitti_tree
+
+    argv = {
+        "train": ["--config", "overfit_gate", "--steps", "1"],
+        "finetune": ["--steps", "1"],
+        "evaluate": ["--dataset", "kitti2015", "--datapath", write_kitti_tree(tmp_path, n_test=0)],
+        "submission": ["--outdir", str(tmp_path / "out")],
+        "test_img": ["--synthetic", "--out", str(tmp_path / "d.png")],
+    }[cli]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        importlib.import_module(f"ecm_torch.cli.{cli}").main([*argv, "--savemodel", str(tmp_path / "ck")])
+    assert not (tmp_path / "out").exists() and not (tmp_path / "d.png").exists()
 
 
 def test_kernel_build_is_lazy():

@@ -4,6 +4,7 @@ between the packages."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import jax
@@ -90,3 +91,87 @@ def torch_train_grads(model: torch.nn.Module, batch: dict, max_disp: int):
     loss.backward()
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
     return loss.item(), [p.detach().numpy() for p in preds], grads, model.state_dict()
+
+
+def write_png(path, array) -> None:
+    """Write a uint8 RGB or uint16 grey array as a PNG with Pillow."""
+    import os
+
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    Image.fromarray(array).save(path)
+
+
+def write_sceneflow_tree(root, splits=(("TRAIN", 5), ("TEST", 2)), h=40, w=64, seed=0) -> str:
+    """A FlyingThings3D-style tree: ``frames_finalpass/<split>/A/0001/
+    {left,right}/NNNN.png`` and ``disparity/<split>/A/0001/left/NNNN.pfm``,
+    random images and disparities in [1, 30)."""
+    import os
+
+    from ecm_torch.data.pfm import write_pfm
+
+    rng = np.random.default_rng(seed)
+    for split, n in splits:
+        base = os.path.join(root, "frames_finalpass", split, "A", "0001")
+        dbase = os.path.join(root, "disparity", split, "A", "0001", "left")
+        os.makedirs(dbase, exist_ok=True)
+        for i in range(n):
+            for side in ("left", "right"):
+                write_png(os.path.join(base, side, f"{i:04d}.png"), rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+            write_pfm(os.path.join(dbase, f"{i:04d}.pfm"), rng.uniform(1, 30, (h, w)).astype(np.float32))
+    return str(root)
+
+
+def write_kitti_tree(root, n_train=4, n_test=2, h=40, w=70, seed=0) -> str:
+    """A KITTI 2015 tree: ``training/{image_2,image_3,disp_occ_0}`` (uint16
+    disparities in [0, 12) px, about a third invalid) and ``testing/
+    {image_2,image_3}``."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("training", n_train), ("testing", n_test)):
+        for i in range(n):
+            name = f"{i:06d}_10.png"
+            for side in ("image_2", "image_3"):
+                write_png(os.path.join(root, split, side, name), rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+            if split == "training":
+                d = rng.uniform(0, 12, (h, w)) * (rng.uniform(size=(h, w)) > 0.3)
+                write_png(os.path.join(root, split, "disp_occ_0", name), np.round(d * 256).astype(np.uint16))
+    return str(root)
+
+
+def write_middlebury_tree(root, h=50, w=70, seed=0) -> str:
+    """Two Middlebury scenes, one with ``disp0GT.pfm`` (one ``inf`` pixel)
+    and ``calib.txt``, one without."""
+    import os
+
+    from ecm_torch.data.pfm import write_pfm
+
+    rng = np.random.default_rng(seed)
+    for scene, with_gt in (("Adirondack", True), ("Bicycle", False)):
+        base = os.path.join(root, scene)
+        for name in ("im0.png", "im1.png"):
+            write_png(os.path.join(base, name), rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        if with_gt:
+            d = rng.uniform(1, 60, (h, w)).astype(np.float32)
+            d[0, 0] = np.inf
+            write_pfm(os.path.join(base, "disp0GT.pfm"), d)
+            with open(os.path.join(base, "calib.txt"), "w") as f:
+                f.write("cam0=...\nndisp=290\n")
+    return str(root)
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op threads set to ``n`` inside, restored after. The
+    tier-1 run puts six test processes on the machine's cores; a train step
+    of small convolutions, each a parallel region whose threads must all be
+    scheduled, runs many times slower there with torch's default of one
+    thread a core than with one thread."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
