@@ -63,7 +63,29 @@
    --synthetic`` as a subprocess with no device flag. It reports the train
    CLI's pairs/s, the DataLoader's own rate, the checkpoint's size and its
    save and restore times, and the submission's ms a pair.
-6. Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+6. Runs slice 9's data axis (``ecm_torch.parallel``) on the one card. NCCL
+   takes one rank a card, so two ranks that share it reduce over gloo, which
+   takes CUDA tensors:
+   - the dry run (``python -m ecm_torch.parallel.dryrun``, the counterpart
+     of ``__graft_entry__.dryrun_multichip``): two ranks on cuda:0 against
+     one process, loss and updated-parameter norm;
+   - ``CONFIGS["sceneflow_dp"]`` at full width (12 seeded 256x512 pairs,
+     max-disp 192, bf16, ``remat`` on, the grouped dispatch; the heads'
+     conv2 scaled by 1e-3): one process's step on the 12 pairs against two
+     ranks of 6 from the same weights, the second rank's ground truth mostly
+     invalid so that the ranks' valid-pixel counts differ: the logged loss
+     at rel <= 2e-2, the seven ``gband_conv_s1`` weight gradients at cosine
+     >= 0.99, every BatchNorm running statistic at rel <= 2e-2, and on each
+     rank 7 + 7 ``gband_conv_s1`` launches and no other kernel (counted in
+     the ranks, 0 just before the step); ``gband_conv_s1`` is held against
+     its plain version at a rank's 6 pairs first. Each rank's ms a step and
+     peak memory are printed as gloo on one shared card: they are not
+     scaling numbers;
+   - ``python -m torch.distributed.run --nproc_per_node 1 -m
+     ecm_torch.cli.train --multihost`` (NCCL at world size 1, DDP) for 2
+     steps of ``sceneflow_dp`` on a SceneFlow-layout tree, whose checkpoint
+     the single-process ``evaluate`` then restores.
+7. Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits nonzero without the last line.
@@ -80,6 +102,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -109,6 +132,8 @@ from ecm_torch.ops import cuda_fused_agg as pairk
 from ecm_torch.ops import cuda_gband as gbk
 from ecm_torch.ops import cuda_gdeconv as gdk
 from ecm_torch.ops import cuda_regression as regk
+from ecm_torch.ops.launches import COUNTERS, read_counts, reset_counts
+from ecm_torch.parallel import dryrun
 from ecm_torch.train import checkpoint as ckpt_lib
 from ecm_torch.train.loop import to_device, train_loop
 from ecm_torch.train.loss import stereo_loss
@@ -149,29 +174,6 @@ MEMCPY_DTOD = "memcpy device to device"
 PLAIN = dict(agg_layout="standard", agg_fused="off", use_pallas=False, regress_mode="fullres")
 PLAIN_BASIC = dict(use_pallas=False, regress_mode="fullres")
 OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
-# the launch counts: name -> (wrapper, attribute)
-COUNTERS = {
-    "cost_volume_concat": (cvk.cost_volume_concat, "launches"),
-    "cost_volume_correlation": (cvk.cost_volume_correlation, "launches"),
-    "conv3d_bn_s1": (gbk.conv3d_bn_s1, "launches"),
-    "conv3d_bn_down": (gbk.conv3d_bn_down, "launches"),
-    "deconv3d_bn": (gdk.deconv3d_bn, "launches"),
-    "fused_conv3d_pair": (pairk.fused_conv3d_pair, "launches"),
-    "fused_upsample_softargmin": (regk.fused_upsample_softargmin, "launches"),
-    "gband_conv_s1": (gbk.gband_conv_s1, "launches"),
-    "gband_conv_s1_input_grad": (gbk.gband_conv_s1, "backward_launches"),
-}
-
-
-def reset_counts() -> None:
-    for fn, attr in COUNTERS.values():
-        setattr(fn, attr, 0)
-
-
-def read_counts() -> dict:
-    return {k: getattr(fn, attr) for k, (fn, attr) in COUNTERS.items()}
-
-
 def log(*a) -> None:
     print(*a, flush=True)
 
@@ -1106,71 +1108,69 @@ def check_submission(kt: str, ck: str, outdir: Path) -> float:
     return worst
 
 
-def cli_phase(card: str) -> dict:
-    """The command-line drivers on files in a temporary directory (see the
-    module's docstring, item 5)."""
+def cli_phase(card: str, root: Path) -> dict:
+    """The command-line drivers on files under ``root`` (see the module's
+    docstring, item 5). Returns the runs and the trees' paths."""
     t_phase = time.perf_counter()
     runs = {}
-    with tempfile.TemporaryDirectory(prefix="ecm_cli_") as tmp:
-        root = Path(tmp)
-        sf, kt = write_cli_trees(root)
-        specs, _ = list_sceneflow(sf)
-        if len(specs) != CLI_SF_PAIRS:
-            raise AssertionError(f"list_sceneflow found {len(specs)} pairs, wrote {CLI_SF_PAIRS}")
-        ck, ck2, outdir = str(root / "ck"), str(root / "ck2"), root / "disp_0"
+    sf, kt = write_cli_trees(root)
+    specs, _ = list_sceneflow(sf)
+    if len(specs) != CLI_SF_PAIRS:
+        raise AssertionError(f"list_sceneflow found {len(specs)} pairs, wrote {CLI_SF_PAIRS}")
+    ck, ck2, outdir = str(root / "ck"), str(root / "ck2"), root / "disp_0"
 
-        train_args = ["--config", TRAIN_SLICE, "--datapath", sf, "--savemodel", ck]
-        runs["cli_train"], out = drive("train", cli_train, [*train_args, "--steps", str(CLI_TRAIN_STEPS)],
-                                       _steps(CLI_TRAIN_STEPS))
-        runs["cli_train_resume"], out = drive(
-            "train (resume)", cli_train, [*train_args, "--steps", str(CLI_RESUME_STEPS)],
-            _steps(CLI_RESUME_STEPS - CLI_TRAIN_STEPS))
-        if f"auto-resumed from step {CLI_TRAIN_STEPS}" not in out:
-            raise AssertionError("train did not auto-resume from its checkpoint")
-        if ckpt_lib.make_manager(ck).all_steps() != [CLI_TRAIN_STEPS, CLI_RESUME_STEPS]:
-            raise AssertionError(f"train checkpoints {ckpt_lib.make_manager(ck).all_steps()}")
-        logged = [json.loads(line) for line in Path(ck, "metrics.jsonl").read_text().splitlines()]
-        if [m["step"] for m in logged] != [CLI_TRAIN_STEPS, CLI_RESUME_STEPS] or not all(
-                math.isfinite(m["loss"]) for m in logged):
-            raise AssertionError(f"train metrics {logged}")
-        runs["cli_train"]["logged"] = logged[0]
-        runs["cli_train_resume"]["logged"] = logged[1]
-        loader = loader_rate(specs)
+    train_args = ["--config", TRAIN_SLICE, "--datapath", sf, "--savemodel", ck]
+    runs["cli_train"], out = drive("train", cli_train, [*train_args, "--steps", str(CLI_TRAIN_STEPS)],
+                                   _steps(CLI_TRAIN_STEPS))
+    runs["cli_train_resume"], out = drive(
+        "train (resume)", cli_train, [*train_args, "--steps", str(CLI_RESUME_STEPS)],
+        _steps(CLI_RESUME_STEPS - CLI_TRAIN_STEPS))
+    if f"auto-resumed from step {CLI_TRAIN_STEPS}" not in out:
+        raise AssertionError("train did not auto-resume from its checkpoint")
+    if ckpt_lib.make_manager(ck).all_steps() != [CLI_TRAIN_STEPS, CLI_RESUME_STEPS]:
+        raise AssertionError(f"train checkpoints {ckpt_lib.make_manager(ck).all_steps()}")
+    logged = [json.loads(line) for line in Path(ck, "metrics.jsonl").read_text().splitlines()]
+    if [m["step"] for m in logged] != [CLI_TRAIN_STEPS, CLI_RESUME_STEPS] or not all(
+            math.isfinite(m["loss"]) for m in logged):
+        raise AssertionError(f"train metrics {logged}")
+    runs["cli_train"]["logged"] = logged[0]
+    runs["cli_train_resume"]["logged"] = logged[1]
+    loader = loader_rate(specs)
 
-        runs["cli_finetune"], out = drive("finetune", cli_finetune, [
-            "--datapath", kt, "--loadmodel", ck, "--steps", str(CLI_FINETUNE_STEPS), "--batch", "4",
-            "--savemodel", ck2], _steps(CLI_FINETUNE_STEPS))
-        if f"loaded pretrained weights (step {CLI_RESUME_STEPS})" not in out:
-            raise AssertionError("finetune did not load the train checkpoint")
-        ckpt = checkpoint_times(ck2)
+    runs["cli_finetune"], out = drive("finetune", cli_finetune, [
+        "--datapath", kt, "--loadmodel", ck, "--steps", str(CLI_FINETUNE_STEPS), "--batch", "4",
+        "--savemodel", ck2], _steps(CLI_FINETUNE_STEPS))
+    if f"loaded pretrained weights (step {CLI_RESUME_STEPS})" not in out:
+        raise AssertionError("finetune did not load the train checkpoint")
+    ckpt = checkpoint_times(ck2)
 
-        _, val = kitti.list_kitti(kt)
-        for name, extra in (("cli_evaluate", []), ("cli_evaluate_pallas", ["--pallas"])):
-            runs[name], out = drive(name[4:], cli_evaluate, [
-                "--dataset", "kitti2015", "--datapath", kt, "--loadmodel", ck2, *extra], _pairs(len(val), bool(extra)))
-            metrics = json.loads(out.strip().splitlines()[-1])
-            if metrics.get("num_pairs") != len(val) or not all(math.isfinite(v) for v in metrics.values()):
-                raise AssertionError(f"evaluate metrics {metrics}")
-            runs[name]["metrics"] = metrics
+    _, val = kitti.list_kitti(kt)
+    for name, extra in (("cli_evaluate", []), ("cli_evaluate_pallas", ["--pallas"])):
+        runs[name], out = drive(name[4:], cli_evaluate, [
+            "--dataset", "kitti2015", "--datapath", kt, "--loadmodel", ck2, *extra], _pairs(len(val), bool(extra)))
+        metrics = json.loads(out.strip().splitlines()[-1])
+        if metrics.get("num_pairs") != len(val) or not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"evaluate metrics {metrics}")
+        runs[name]["metrics"] = metrics
 
-        runs["cli_submission"], out = drive("submission", cli_submission, [
-            "--datapath", kt, "--loadmodel", ck2, "--outdir", str(outdir)], _pairs(CLI_KITTI_PAIRS))
-        ms = [float(line.split()[-2]) for line in out.splitlines() if line.endswith(" ms")]
-        if len(ms) != CLI_KITTI_PAIRS:
-            raise AssertionError(f"submission printed {len(ms)} times for {CLI_KITTI_PAIRS} pairs")
-        runs["cli_submission"].update(ms_per_pair=statistics.median(ms), runs_ms=ms,
-                                      max_codes_off=check_submission(kt, ck2, outdir))
+    runs["cli_submission"], out = drive("submission", cli_submission, [
+        "--datapath", kt, "--loadmodel", ck2, "--outdir", str(outdir)], _pairs(CLI_KITTI_PAIRS))
+    ms = [float(line.split()[-2]) for line in out.splitlines() if line.endswith(" ms")]
+    if len(ms) != CLI_KITTI_PAIRS:
+        raise AssertionError(f"submission printed {len(ms)} times for {CLI_KITTI_PAIRS} pairs")
+    runs["cli_submission"].update(ms_per_pair=statistics.median(ms), runs_ms=ms,
+                                  max_codes_off=check_submission(kt, ck2, outdir))
 
-        t0 = time.perf_counter()
-        demo = subprocess.run(
-            [sys.executable, "-m", "ecm_torch.cli.test_img", "--synthetic", "--loadmodel", ck2,
-             "--out", str(root / "d.png")],
-            cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=300,
-        )
-        log(f"  cli test_img (subprocess, no --device): exit {demo.returncode}; {demo.stdout.strip()[-300:]}")
-        if demo.returncode != 0 or not (root / "d.png").exists():
-            raise AssertionError(f"test_img exited {demo.returncode}: {demo.stderr[-2000:]}")
-        runs["cli_test_img"] = dict(wall_s=time.perf_counter() - t0, stdout=demo.stdout.strip()[-300:])
+    t0 = time.perf_counter()
+    demo = subprocess.run(
+        [sys.executable, "-m", "ecm_torch.cli.test_img", "--synthetic", "--loadmodel", ck2,
+         "--out", str(root / "d.png")],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=300,
+    )
+    log(f"  cli test_img (subprocess, no --device): exit {demo.returncode}; {demo.stdout.strip()[-300:]}")
+    if demo.returncode != 0 or not (root / "d.png").exists():
+        raise AssertionError(f"test_img exited {demo.returncode}: {demo.stderr[-2000:]}")
+    runs["cli_test_img"] = dict(wall_s=time.perf_counter() - t0, stdout=demo.stdout.strip()[-300:])
 
     wall = time.perf_counter() - t_phase
     pairs = CONFIGS[TRAIN_SLICE].data.global_batch
@@ -1184,7 +1184,211 @@ def cli_phase(card: str) -> dict:
     log(f"phase cli: submission {runs['cli_submission']['ms_per_pair']:.2f} ms a pair (median of "
         f"{CLI_KITTI_PAIRS}, host arrays to host disparity) [{card}]")
     log(f"phase cli: wall {wall:.1f} s [{card}]")
-    return dict(card=card, runs=runs, loader=loader, checkpoint=ckpt, wall_s=wall)
+    return dict(card=card, runs=runs, loader=loader, checkpoint=ckpt, wall_s=wall, trees=(sf, kt))
+
+
+# the parallel phase (slice 9): the data axis on the one card
+PAR_CONFIG = "sceneflow_dp"
+PAR_RANKS = 2
+PAR_TIMEOUT = 600  # seconds, for each group of processes and each collective
+PAR_LOSS_REL_TOL = 2e-2  # two ranks of 6 against one process of 12, bf16
+PAR_GRAD_COSINE = 0.99  # the seven gband_conv_s1 sites' weight gradients
+PAR_BN_REL_TOL = 2e-2  # each running statistic, max|diff| / max|ref|
+PAR_TIMED_STEPS = 3
+PAR_CLI_STEPS = 2
+
+
+def par_batch() -> dict:
+    """``sceneflow_dp``'s global batch: 12 seeded synthetic 256x512 pairs;
+    the second rank's ground truth is mostly beyond max-disp (invalid), so
+    the ranks' valid-pixel counts differ."""
+    cfg = CONFIGS[PAR_CONFIG]
+    batch = make_batch(3, cfg.data.global_batch, *cfg.data.crop)
+    half = cfg.data.global_batch // PAR_RANKS
+    gt = batch["disparity"][half:]
+    gt[np.random.default_rng(3).uniform(size=gt.shape) < 0.8] = 2.0 * cfg.model.max_disp
+    return batch
+
+
+def check_gband_rank_shape(gen) -> float:
+    """``gband_conv_s1`` against its plain version at a rank's shape of the
+    parallel path (6 pairs), both forward forms and both input gradients;
+    the largest max|diff| / max|ref|."""
+    b = CONFIGS[PAR_CONFIG].data.global_batch // PAR_RANKS
+    worst = 0.0
+    for cin in (2 * C, C):
+        x = _rnd(gen, b, D4, TH // 4, TW // 4, cin).bfloat16()
+        wt = _rnd(gen, C, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
+        dy = _rnd(gen, b, D4, TH // 4, TW // 4, C).bfloat16()
+        with torch.no_grad():
+            pairs_ = ((gbk.gband_conv_s1(x, wt), gbk.gband_conv_s1_torch(x, wt)),
+                      (gbk.gband_conv_s1_input_grad(dy, wt.bfloat16()),
+                       gbk.gband_conv_s1_torch(dy, wt.flip(2, 3, 4).transpose(0, 1))))
+        for out, ref in pairs_:
+            worst = max(worst, ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item())
+    if not worst <= PAIR_REL_TOL:
+        raise AssertionError(f"gband_conv_s1 at B={b}: rel err {worst} > {PAIR_REL_TOL}")
+    return worst
+
+
+def par_reference(batch: dict) -> tuple[dict, dict]:
+    """One process's ``sceneflow_dp`` step on the global batch (the heads'
+    conv2 scaled by 1e-3, as in ``compare_train_paths``). Returns the start
+    weights (on the host) and the step's loss, gband weight gradients,
+    running statistics, launches, ms a step and peak memory."""
+    cfg = CONFIGS[PAR_CONFIG]
+    model = cfg.model.build(generator=torch.Generator().manual_seed(0))
+    if model.resolve_layout(torch.device("cuda")) != "grouped" or not model.remat:
+        raise AssertionError(f"{PAR_CONFIG} does not resolve to the grouped layout with remat on CUDA")
+    with torch.no_grad():
+        for i in (1, 2, 3):
+            head = getattr(model.aggregation, f"classif{i}").conv2
+            head.weight.mul_(1e-3)
+            head.bias.mul_(1e-3)
+    start = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    state = create_train_state(model, make_optimizer(cfg.train.lr))
+    step = make_train_step(model, cfg.model.max_disp)
+    cuda_batch = to_device(batch, torch.device("cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state, metrics = step(state, cuda_batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    params = dict(model.named_parameters())
+    ref = dict(
+        loss=metrics["loss"].item(), valid_px=metrics["valid_px"].item(), launches=launches,
+        grads={s: params[f"{s}.conv.weight"].grad.detach().float().cpu().clone() for s in GBAND_SITES},
+        stats={k: v.detach().float().cpu().clone() for k, v in model.state_dict().items()
+               if k.endswith(("running_mean", "running_var"))},
+    )
+    ref["step_ms"] = times_ms(lambda: step(state, cuda_batch), PAR_TIMED_STEPS)
+    ref["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, step, model, params, cuda_batch, metrics
+    torch.cuda.empty_cache()
+    return start, ref
+
+
+def compare_ranks(ref: dict, ranks: list[dict]) -> dict:
+    """Each rank's step against the one-process reference: logged loss,
+    the seven gband weight gradients (cosine), every running statistic,
+    7 + 7 gband_conv_s1 launches and no other kernel."""
+    want = {k: 0 for k in COUNTERS}
+    want.update(gband_conv_s1=7, gband_conv_s1_input_grad=7)
+    out = []
+    for r, got in enumerate(ranks):
+        if got["launches"] != want:
+            raise AssertionError(f"parallel rank {r}: launches {got['launches']}, expected {want}")
+        loss_rel = abs(got["metrics"]["loss"] - ref["loss"]) / abs(ref["loss"])
+        cos = {s: F.cosine_similarity(got["grads"][f"{s}.conv.weight"].float().flatten(),
+                                      ref["grads"][s].flatten(), dim=0).item() for s in GBAND_SITES}
+        bn_rel = max(((got["state"][k].float() - v).abs().max() / v.abs().max()).item()
+                     for k, v in ref["stats"].items())
+        out.append(dict(rank=r, loss=got["metrics"]["loss"], loss_rel=loss_rel, grad_cosine=cos, bn_rel=bn_rel,
+                        valid_px=got["metrics"]["valid_px"], launches=got["launches"],
+                        step_ms=got["step_ms"], step_ms_median=got["step_ms_median"],
+                        peak_mem_gb=got["peak_mem_gb"]))
+        if not loss_rel <= PAR_LOSS_REL_TOL:
+            raise AssertionError(f"parallel rank {r}: loss {got['metrics']['loss']} vs {ref['loss']}: rel {loss_rel}")
+        if not min(cos.values()) >= PAR_GRAD_COSINE:
+            raise AssertionError(f"parallel rank {r}: gband weight-gradient cosine {cos} below {PAR_GRAD_COSINE}")
+        if not bn_rel <= PAR_BN_REL_TOL:
+            raise AssertionError(f"parallel rank {r}: BatchNorm statistics rel {bn_rel} > {PAR_BN_REL_TOL}")
+        if got["metrics"]["valid_px"] != ref["valid_px"]:
+            raise AssertionError(f"parallel rank {r}: valid_px {got['metrics']['valid_px']} vs {ref['valid_px']}")
+    return dict(ranks=out)
+
+
+def run_session(cmd: list[str], timeout: float) -> subprocess.CompletedProcess:
+    """``cmd`` from the repository's root in a session of its own, killed
+    whole (the launcher and its workers) after ``timeout`` seconds."""
+    proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def nccl_world_one(root: Path, sf: str, kt: str) -> dict:
+    """``train --multihost`` under ``torch.distributed.run`` with one rank
+    (NCCL, DDP) for ``PAR_CLI_STEPS`` steps of ``sceneflow_dp`` on the cli
+    phase's SceneFlow-layout tree ``sf``; then the single-process
+    ``evaluate`` restores the checkpoint it saved on the KITTI validation
+    pairs of ``kt`` (launches 4/3/3/1/1 a pair)."""
+    ck = root / "ck_multihost"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1", "--nnodes", "1",
+           "--master_addr", "localhost", "--master_port", str(dryrun.free_port()),
+           "-m", "ecm_torch.cli.train", "--multihost", "--config", PAR_CONFIG, "--datapath", sf,
+           "--steps", str(PAR_CLI_STEPS), "--savemodel", str(ck)]
+    log(f"  parallel: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    run = run_session(cmd, PAR_TIMEOUT)
+    wall = time.perf_counter() - t0
+    log(f"  parallel NCCL train: exit {run.returncode}; {run.stdout.strip()[-600:]}")
+    if run.returncode != 0:
+        raise AssertionError(f"train --multihost exited {run.returncode}: {run.stderr[-3000:]}")
+    for text in ("multihost: 1 ranks, backend nccl, rank 0 on cuda:0", f"done at step {PAR_CLI_STEPS}"):
+        if text not in run.stdout:
+            raise AssertionError(f"train --multihost did not print {text!r}")
+    if ckpt_lib.make_manager(str(ck)).all_steps() != [PAR_CLI_STEPS]:
+        raise AssertionError(f"train --multihost checkpoints {ckpt_lib.make_manager(str(ck)).all_steps()}")
+    logged = json.loads(Path(ck, "metrics.jsonl").read_text().splitlines()[-1])
+    _, val = kitti.list_kitti(kt)
+    evaluated, out = drive("evaluate (the multihost checkpoint)", cli_evaluate, [
+        "--dataset", "kitti2015", "--datapath", kt, "--loadmodel", str(ck)], _pairs(len(val)))
+    if f"loaded checkpoint step {PAR_CLI_STEPS}" not in out:
+        raise AssertionError("evaluate did not restore the multihost checkpoint")
+    metrics = json.loads(out.strip().splitlines()[-1])
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"evaluate metrics {metrics}")
+    return dict(train_wall_s=wall, train_logged=logged, evaluate=dict(evaluated, metrics=metrics))
+
+
+def parallel_phase(card: str, gen, sf: str, kt: str) -> dict:
+    """Slice 9's path, the data axis, on the one card (see the module's
+    docstring, item 6), the NCCL train CLI on the cli phase's trees."""
+    t_phase = time.perf_counter()
+    dry = dryrun.dryrun_multichip(PAR_RANKS, device="cuda:0", backend="gloo", timeout=PAR_TIMEOUT)
+    dry["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase parallel: dry run, {PAR_RANKS} ranks over gloo on cuda:0: loss {dry['loss']} (one process "
+        f"{dry['loss_one_process']}), parameter norm {dry['param_norm']} (one process "
+        f"{dry['param_norm_one_process']}) [{card}]")
+    gband_rel = check_gband_rank_shape(gen)
+    batch = par_batch()
+    t0 = time.perf_counter()
+    start, ref = par_reference(batch)
+    ref["wall_s"] = time.perf_counter() - t0
+    log(f"  parallel reference, one process on {len(batch['left'])} pairs: loss {ref['loss']}, steps "
+        f"{ref['step_ms']} ms, peak {ref['peak_mem_gb']:.2f} GB")
+    with tempfile.TemporaryDirectory(prefix="ecm_parallel_") as tmp:
+        root = Path(tmp)
+        torch.save([dict(name=PAR_CONFIG, kind="step", config=PAR_CONFIG, state_dict=start,
+                         batch={k: torch.from_numpy(v) for k, v in batch.items()},
+                         lr=CONFIGS[PAR_CONFIG].train.lr, grads=[f"{s}.conv.weight" for s in GBAND_SITES],
+                         timed_steps=PAR_TIMED_STEPS)], root / "cases.pt")
+        del start
+        t0 = time.perf_counter()
+        dryrun.launch(["--cases", str(root / "cases.pt"), "--out", str(root), "--device", "cuda:0",
+                       "--backend", "gloo", "--timeout", str(PAR_TIMEOUT)], PAR_RANKS, PAR_TIMEOUT)
+        group_wall = time.perf_counter() - t0
+        ranks = [torch.load(root / f"rank{r}.pt", weights_only=True)[PAR_CONFIG] for r in range(PAR_RANKS)]
+        compared = compare_ranks(ref, ranks)
+        nccl = nccl_world_one(root, sf, kt)
+    for r in compared["ranks"]:
+        log(f"phase parallel: rank {r['rank']} of {PAR_RANKS} (gloo, both ranks on one shared card; not a "
+            f"scaling number): loss {r['loss']} (rel {r['loss_rel']:.2e}), gband weight-gradient cosine min "
+            f"{min(r['grad_cosine'].values()):.5f}, BatchNorm statistics rel {r['bn_rel']:.2e}, step "
+            f"{r['step_ms_median']:.2f} ms (runs {r['step_ms']}), peak {r['peak_mem_gb']:.2f} GB [{card}]")
+    wall = time.perf_counter() - t_phase
+    log(f"phase parallel: one process on {len(batch['left'])} pairs {statistics.median(ref['step_ms']):.2f} ms a "
+        f"step; NCCL world-size-1 train CLI {nccl['train_wall_s']:.1f} s; wall {wall:.1f} s [{card}]")
+    return dict(card=card, dryrun=dry, gband_rank_shape_rel=gband_rel, reference={
+        k: v for k, v in ref.items() if k not in ("grads", "stats")}, group_wall_s=group_wall,
+        launches=compared["ranks"][0]["launches"], nccl=nccl, wall_s=wall, **compared)
 
 
 def main() -> int:
@@ -1255,9 +1459,14 @@ def main() -> int:
     trained = train(card)
     log(f"phase train {TRAIN_SLICE} [{card}]: " + json.dumps(trained))
     paths["train_sceneflow_single"] = trained
-    cli = cli_phase(card)
-    log("phase cli [" + card + "]: " + json.dumps(cli))
+    with tempfile.TemporaryDirectory(prefix="ecm_cli_") as tmp:
+        cli = cli_phase(card, Path(tmp))
+        log("phase cli [" + card + "]: " + json.dumps(cli))
+        par = parallel_phase(card, gen, *cli["trees"])
+    log("phase parallel [" + card + "]: " + json.dumps(par))
     paths.update(cli["runs"])
+    paths["parallel_" + PAR_CONFIG] = par
+    paths["parallel_nccl_evaluate"] = par["nccl"]["evaluate"]
     # launches: each kernel's count on its main path (the grouped serving
     # path runs the six slice-1/2 kernels, basic_correlation the correlation
     # kernel, the train path gband_conv_s1: forwards + input gradients)

@@ -9,9 +9,16 @@ Intended differences from the JAX package:
 - ``--pallas`` keeps its name and selects the CUDA cost-volume kernel, as
   ``ModelConfig.use_pallas`` does in the port;
 - ``--debug-nans`` turns on ``torch.autograd``'s anomaly detection;
-- one process drives one card: ``--multihost`` and a disparity mesh
-  (``--mesh-disp`` above 1) raise until the parallel slice (ROADMAP queue 1,
-  "parallel") lands;
+- ``--multihost`` joins the process group of ``torch.distributed.run``
+  (one process a card, ``cuda:LOCAL_RANK``, or the CPU with ``--device
+  cpu``); ``--dist-backend`` (NCCL on CUDA, gloo on the CPU by default) and
+  ``--dist-timeout`` are the port's own. The data axis is every rank of the
+  group (``mesh_data`` None; another size raises, where ``ecm_tpu`` may
+  take a subset of its devices). Only rank 0 prints and writes files;
+  ``evaluate``, ``submission`` and ``test_img`` take the whole set on every
+  rank, as ``ecm_tpu``'s do;
+- a disparity mesh (``--mesh-disp`` above 1) raises until slice 10 of the
+  port (ROADMAP queue 1, parallel) lands;
 - no compile-cache settings: the kernel build cache in ``build/`` is their
   counterpart.
 """
@@ -22,10 +29,10 @@ import argparse
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from ecm_torch.configs import CONFIGS, ExperimentConfig
-
-NOT_PORTED = "not ported yet (ROADMAP queue 1, parallel: DDP + SyncBatchNorm and the disparity halo exchange)"
+from ecm_torch.parallel.sharding import DISP_NOT_PORTED, init_from_env, is_main_process, make_mesh
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -61,8 +68,17 @@ def base_parser(description: str) -> argparse.ArgumentParser:
         choices=["off", "auto", "on"],
         help="standard-layout fused CUDA conv pairs (eval only)",
     )
-    p.add_argument("--mesh-disp", type=int, default=None, help=f"disp-axis mesh size ({NOT_PORTED} above 1)")
-    p.add_argument("--multihost", action="store_true", help=f"multi-process training ({NOT_PORTED})")
+    p.add_argument("--mesh-disp", type=int, default=None, help="disp-axis mesh size (above 1: slice 10, not ported)")
+    p.add_argument("--multihost", action="store_true", help="join torch.distributed.run's process group")
+    p.add_argument(
+        "--dist-backend",
+        default=None,
+        choices=["nccl", "gloo"],
+        help="with --multihost (default: nccl on CUDA, one rank a card; gloo on the CPU)",
+    )
+    p.add_argument(
+        "--dist-timeout", type=float, default=600.0, help="with --multihost: seconds before a collective fails"
+    )
     p.add_argument(
         "--debug-nans",
         action="store_true",
@@ -107,24 +123,43 @@ def resolve_config(args, default_preset: str) -> ExperimentConfig:
 
 
 def maybe_init_distributed(args) -> None:
+    """``--multihost``: join the process group and set ``args.device`` to
+    this rank's device."""
     if getattr(args, "multihost", False):
-        raise NotImplementedError(f"--multihost: {NOT_PORTED}")
+        args.device = init_from_env(args.device, args.dist_backend, args.dist_timeout)
     if getattr(args, "debug_nans", False):
         torch.autograd.set_detect_anomaly(True)
 
 
+def shutdown_distributed() -> None:
+    """Leave the process group, if the process joined one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def say(*a) -> None:
+    """``print`` on rank 0 only."""
+    if is_main_process():
+        print(*a, flush=True)
+
+
 def make_mesh_from(cfg: ExperimentConfig):
-    """The training mesh: None, since one process trains on one card (the
-    JAX package's answer on one device). A disparity mesh raises."""
+    """The training mesh: None for one process (the JAX package's answer
+    on one device); under ``--multihost`` the data axis over every rank. A
+    disparity mesh raises."""
     if cfg.train.mesh_disp > 1:
-        raise NotImplementedError(f"--mesh-disp {cfg.train.mesh_disp}: {NOT_PORTED}")
-    return None
+        raise NotImplementedError(f"--mesh-disp {cfg.train.mesh_disp}: {DISP_NOT_PORTED}")
+    if not dist.is_initialized():
+        return None
+    return make_mesh(data=cfg.train.mesh_data)
 
 
 def eval_mesh(cfg: ExperimentConfig):
     """The disparity-sharded eval mesh: None for ``mesh_disp <= 1``; above
     that it raises."""
-    return make_mesh_from(cfg)
+    if cfg.train.mesh_disp > 1:
+        raise NotImplementedError(f"--mesh-disp {cfg.train.mesh_disp}: {DISP_NOT_PORTED}")
+    return None
 
 
 def make_data_iter(cfg: ExperimentConfig):
@@ -211,5 +246,5 @@ def restore(state, loadmodel: str | None):
     if not loadmodel:
         return state, 0
     state, step0 = ckpt_lib.restore_latest(ckpt_lib.make_manager(loadmodel), state)
-    print(f"loaded checkpoint step {step0}")
+    say(f"loaded checkpoint step {step0}")
     return state, step0

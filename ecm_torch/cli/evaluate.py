@@ -1,7 +1,8 @@
 """Evaluation (port of ``ecm_tpu/cli/evaluate.py``): EPE, D1-all and the
 k-px rates over a SceneFlow test split, a KITTI validation split or the
 Middlebury scenes with ground truth, printed as one JSON object (the mean
-of each metric over the pairs, and ``num_pairs``).
+of each metric over the pairs, and ``num_pairs``). With ``--multihost``
+every rank evaluates the whole set, as ``ecm_tpu``'s does, and rank 0 prints.
 
     python -m ecm_torch.cli.evaluate --datapath /data/sceneflow --dataset sceneflow \\
         --loadmodel ./ckpt
@@ -13,7 +14,16 @@ import json
 
 import numpy as np
 
-from ecm_torch.cli.common import base_parser, build_state, eval_mesh, resolve_config, restore
+from ecm_torch.cli.common import (
+    base_parser,
+    build_state,
+    eval_mesh,
+    maybe_init_distributed,
+    resolve_config,
+    restore,
+    say,
+    shutdown_distributed,
+)
 from ecm_torch.data.pipeline import make_eval_iterator
 from ecm_torch.train.loop import to_device
 from ecm_torch.train.steps import make_eval_step
@@ -28,6 +38,7 @@ def main(argv: list[str] | None = None) -> None:
     )
     parser.add_argument("--limit", type=int, default=0, help="max pairs (0 = all)")
     args = parser.parse_args(argv)
+    maybe_init_distributed(args)
     cfg = resolve_config(args, default_preset="kitti_infer")
 
     if args.dataset == "sceneflow":
@@ -59,7 +70,8 @@ def main(argv: list[str] | None = None) -> None:
         all_m.append({k: float(v) for k, v in m.items()})
     agg = {k: float(np.mean([m[k] for m in all_m])) for k in all_m[0] if k != "valid_px"}
     agg["num_pairs"] = len(all_m)
-    print(json.dumps(agg))
+    say(json.dumps(agg))
+    shutdown_distributed()
 
 
 if __name__ == "__main__":

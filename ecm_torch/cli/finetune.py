@@ -21,6 +21,8 @@ from ecm_torch.cli.common import (
     make_mesh_from,
     maybe_init_distributed,
     resolve_config,
+    say,
+    shutdown_distributed,
     steps_from_epochs,
 )
 from ecm_torch.train import checkpoint as ckpt_lib
@@ -38,7 +40,7 @@ def main(argv: list[str] | None = None) -> None:
     cfg = dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, dataset=f"kitti{args.datatype}")
     )
-    make_mesh_from(cfg)
+    mesh = make_mesh_from(cfg)
 
     tx = make_optimizer(cfg.train.lr, list(cfg.train.lr_drops) or None)
     state = build_state(cfg, args.device, cfg.data.seed, tx)
@@ -46,11 +48,12 @@ def main(argv: list[str] | None = None) -> None:
         loaded, step0 = ckpt_lib.restore_latest(ckpt_lib.make_manager(args.loadmodel), state)
         # weights + BN stats only; a fresh optimizer and step for the fine-tune
         state = create_train_state(loaded.model, tx)
-        print(f"loaded pretrained weights (step {step0}) from {args.loadmodel}")
+        say(f"loaded pretrained weights (step {step0}) from {args.loadmodel}")
 
     manager = ckpt_lib.make_manager(cfg.train.ckpt_dir)
 
-    # validation eval: 3-px error / D1-all on the held-out split
+    # validation eval: 3-px error / D1-all on the held-out split, the whole
+    # split on every rank
     from ecm_torch.data.kitti import list_kitti, load_sample
     from ecm_torch.data.pipeline import make_eval_iterator
 
@@ -75,9 +78,10 @@ def main(argv: list[str] | None = None) -> None:
     num_steps = steps_from_epochs(cfg, n_samples)
     state = train_loop(
         state,
-        make_train_step(model, cfg.model.max_disp),
+        make_train_step(model, cfg.model.max_disp, mesh),
         data_iter,
         num_steps=num_steps,
+        mesh=mesh,
         log_every=cfg.train.log_every,
         ckpt_manager=manager,
         ckpt_every=cfg.train.ckpt_every,
@@ -86,7 +90,8 @@ def main(argv: list[str] | None = None) -> None:
         eval_fn=eval_fn if val_specs else None,
         eval_every=cfg.train.eval_every or cfg.train.ckpt_every,
     )
-    print(f"done at step {state.step}")
+    say(f"done at step {state.step}")
+    shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Single-pair demo (port of ``ecm_tpu/cli/test_img.py``, the reference's
 ``test_img.py``): one stereo pair from files, or a synthetic one with
 ``--synthetic``, to a 16-bit disparity PNG and a colour-mapped view beside
-it (``<out>_vis.png``).
+it (``<out>_vis.png``). With ``--multihost`` every rank computes the pair and
+rank 0 writes it.
 
     python -m ecm_torch.cli.test_img --left l.png --right r.png --out disp.png
     python -m ecm_torch.cli.test_img --synthetic --out disp.png
@@ -12,9 +13,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ecm_torch.cli.common import base_parser, build_state, resolve_config, restore
+from ecm_torch.cli.common import (
+    base_parser,
+    build_state,
+    maybe_init_distributed,
+    resolve_config,
+    restore,
+    say,
+    shutdown_distributed,
+)
 from ecm_torch.data.kitti import save_disp_png
 from ecm_torch.data.preprocess import normalize, pad_to_multiple, unpad
+from ecm_torch.parallel import is_main_process
 from ecm_torch.train.steps import make_infer_fn
 
 
@@ -37,6 +47,7 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--out", default="disp.png")
     parser.add_argument("--synthetic", action="store_true")
     args = parser.parse_args(argv)
+    maybe_init_distributed(args)
     cfg = resolve_config(args, default_preset="kitti_infer")
 
     if args.synthetic:
@@ -60,13 +71,15 @@ def main(argv: list[str] | None = None) -> None:
     left, right = (torch.from_numpy(a)[None].to(device) for a in (left_n, right_n))
     disp = infer(left, right)[0].float().cpu().numpy()
     disp = unpad(disp, pads)
-    save_disp_png(args.out, disp)
-    colormap_png(args.out.replace(".png", "_vis.png"), disp)
+    if is_main_process():
+        save_disp_png(args.out, disp)
+        colormap_png(args.out.replace(".png", "_vis.png"), disp)
     msg = f"wrote {args.out}: range [{disp.min():.2f}, {disp.max():.2f}]"
     if gt is not None:
         valid = gt > 0
         msg += f", EPE vs synthetic GT: {np.abs(disp - gt)[valid].mean():.3f} px"
-    print(msg)
+    say(msg)
+    shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -42,11 +42,13 @@ class PipelineConfig:
     num_workers: int = 0  # DataLoader worker processes (0 = in-process)
 
 
-def _rank_slice(n_global: int) -> tuple[int, int, int]:
-    """(rank batch, rank, world size) of this process: ``torch.distributed``'s
-    when it is initialised, else rank 0 of 1."""
+def _rank_slice(n_global: int, group=None) -> tuple[int, int, int]:
+    """(rank batch, rank, world size) of this process in ``group`` (None:
+    the default group) when ``torch.distributed`` is initialised, else rank
+    0 of 1."""
     dist = torch.distributed
-    world, rank = (dist.get_world_size(), dist.get_rank()) if dist.is_available() and dist.is_initialized() else (1, 0)
+    initialized = dist.is_available() and dist.is_initialized()
+    world, rank = (dist.get_world_size(group), dist.get_rank(group)) if initialized else (1, 0)
     if n_global % world:
         raise ValueError(f"global batch {n_global} not divisible by {world} ranks")
     return n_global // world, rank, world

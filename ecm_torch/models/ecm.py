@@ -20,6 +20,7 @@ from ecm_torch.models.aggregation import LAYOUTS, ClassifHead, ECMAggregation
 from ecm_torch.models.context import ContextMapping
 from ecm_torch.models.features import FeatureExtraction
 from ecm_torch.models.layers import ConvBN, init_weights, remat
+from ecm_torch.parallel.sharding import constrain_volume
 from ecm_torch.ops.cost_volume import cost_volume
 from ecm_torch.ops.cuda_regression import fused_upsample_softargmin
 from ecm_torch.ops.softargmin import disparity_regression
@@ -161,6 +162,7 @@ class ECMStereo(_StereoModel):
         fl = self.feature(left)
         fr = self.feature(right)
         vol = cost_volume(fl, fr, self.max_disp // 4, mode=self.cost_mode, use_pallas=self.use_pallas)
+        vol = constrain_volume(vol)
         return self.aggregation(vol, fl, self.resolve_layout(vol.device))
 
 
@@ -213,6 +215,7 @@ class ECMBasic(_StereoModel):
         fl = self.feature(left)
         fr = self.feature(right)
         vol = cost_volume(fl, fr, self.max_disp // 4, mode=self.cost_mode, use_pallas=self.use_pallas)
+        vol = constrain_volume(vol)
         return self.aggregate(vol, fl)
 
     def aggregate(self, vol: torch.Tensor, fl: torch.Tensor) -> list[torch.Tensor]:

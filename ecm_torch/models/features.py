@@ -9,6 +9,7 @@ from torch import nn
 
 from ecm_torch.models.layers import BasicBlock, ConvBN, conv
 from ecm_torch.ops.upsample import upsample_bilinear
+from ecm_torch.parallel.sharding import constrain_features
 
 
 class SPPBranch(nn.Module):
@@ -55,7 +56,7 @@ class FeatureExtraction(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        x = self.firstconv3(self.firstconv2(self.firstconv1(x)))
+        x = constrain_features(self.firstconv3(self.firstconv2(self.firstconv1(x))))
         for i in range(3):
             x = getattr(self, f"layer1_{i}")(x)
         for i in range(16):

@@ -9,7 +9,9 @@ modules do. Padding is explicit, ``dilation * (k // 2)``.
 BatchNorm keeps flax's training semantics (``BatchNorm2d``/``BatchNorm3d``
 below): the running variance folds in the *biased* batch variance, and
 :func:`remat` recomputes a block without updating the running statistics a
-second time, as ``nn.remat`` does.
+second time, as ``nn.remat`` does. Under an active mesh
+(``ecm_torch.parallel.use_mesh``) the statistics are the global batch's, as
+flax's are under GSPMD's data sharding.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ecm_torch.ops.cuda_gband import gband_conv_s1
+from ecm_torch.parallel.sharding import active_mesh, reduction_mesh, use_mesh
 
 # single source of truth for the BatchNorm epsilon (torch default), shared by
 # the BN modules and the eval-time BN folds of the fused aggregation path
@@ -91,13 +94,22 @@ def frozen_batch_stats():
         _stats.frozen = prev
 
 
+@contextlib.contextmanager
+def _recomputing(mesh):
+    with frozen_batch_stats(), use_mesh(mesh):
+        yield
+
+
 def remat(fn, *args):
     """``fn(*args)`` under activation checkpointing (``nn.remat`` in JAX): the
     backward recomputes ``fn``'s activations, with the running statistics of
-    its BatchNorms frozen, so they are updated once per step."""
+    its BatchNorms frozen, so they are updated once per step. The
+    recomputation runs under the mesh of the forward: on a GPU autograd runs
+    it on a thread of its own, which does not see the caller's mesh."""
+    mesh = active_mesh()
     return checkpoint(
         fn, *args, use_reentrant=False,
-        context_fn=lambda: (contextlib.nullcontext(), frozen_batch_stats()),
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing(mesh)),
     )
 
 
@@ -106,7 +118,14 @@ class _FlaxBatchNorm:
     batch mean and biased variance in f32 over every dim but C, normalised in
     f32 and returned in the input's dtype; the running statistics fold in
     the biased variance (torch's own BatchNorm folds in the unbiased one).
-    At eval, torch's BatchNorm with the running statistics."""
+    At eval, torch's BatchNorm with the running statistics.
+
+    Under a mesh of more than one rank the batch is the group's: the count,
+    the mean and then the sum of squared deviations from it (two passes, as
+    on one process) are summed over the ranks through ``Mesh.sum``, whose
+    backward sums the ranks' gradients, so forward and backward are those
+    of one BatchNorm over the concatenated batch. ``nn.SyncBatchNorm`` is
+    not used: it folds in the unbiased variance."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -114,7 +133,12 @@ class _FlaxBatchNorm:
         self._check_input_dim(x)
         c = x.shape[1]
         n = x.numel() // c
-        if n > 1:
+        mesh = reduction_mesh()
+        if mesh is not None:
+            # every rank holds at least one value a channel: the global
+            # count is at least 2, so flax's one-value case cannot arise
+            y, mean, var = _global_batch_norm(x, self.weight, self.bias, self.eps, mesh)
+        elif n > 1:
             # with momentum 1, batch_norm writes the batch mean and the
             # unbiased batch variance into these two buffers
             mean = torch.zeros_like(self.running_mean)
@@ -137,6 +161,23 @@ class _FlaxBatchNorm:
                 self.running_var.mul_(1.0 - m).add_(var, alpha=m)
                 self.num_batches_tracked += 1
         return y
+
+
+def _global_batch_norm(x, weight, bias, eps, mesh):
+    """``(y, mean, biased var)`` of channels-first ``x`` over every dim but C
+    and over the ranks of ``mesh``, in f32 (f64 for f64 ``x``); ``y`` in
+    ``x``'s dtype."""
+    c = x.shape[1]
+    dims = [0, *range(2, x.ndim)]
+    shape = (1, c) + (1,) * (x.ndim - 2)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    sums = mesh.sum(torch.cat([xf.sum(dims), xf.new_full((1,), x.numel() // c)]))
+    count = sums[c:].detach()
+    mean = sums[:c] / count
+    dev = xf - mean.view(shape)
+    var = mesh.sum(dev.square().sum(dims)) / count
+    y = dev * (torch.rsqrt(var + eps) * weight).view(shape) + bias.view(shape)
+    return y.to(x.dtype), mean.detach(), var.detach()
 
 
 class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):

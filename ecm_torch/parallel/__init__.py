@@ -1,0 +1,31 @@
+"""Data parallelism of the port (``ecm_tpu.parallel``): a ``("data",
+"disp")`` mesh over a ``torch.distributed`` process group, global-batch
+BatchNorm, loss and metrics under :func:`use_mesh`, and ``dryrun`` (the
+counterpart of ``__graft_entry__.dryrun_multichip``). The disparity axis is
+slice 10 of the port."""
+
+from ecm_torch.parallel.sharding import (
+    Mesh,
+    active_mesh,
+    batch_sharding,
+    constrain_features,
+    constrain_volume,
+    init_from_env,
+    is_main_process,
+    make_mesh,
+    replicate,
+    use_mesh,
+)
+
+__all__ = [
+    "Mesh",
+    "active_mesh",
+    "batch_sharding",
+    "constrain_features",
+    "constrain_volume",
+    "init_from_env",
+    "is_main_process",
+    "make_mesh",
+    "replicate",
+    "use_mesh",
+]

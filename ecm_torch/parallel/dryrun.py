@@ -1,0 +1,288 @@
+"""Multi-process dry run of the data axis: the counterpart of
+``__graft_entry__.dryrun_multichip`` (whose disparity half is slice 10).
+
+Each rank draws its own weights, takes rank 0's (``replicate``, as the JAX
+dry run replicates its state) and its rows of one global batch, and runs
+one full train step (forward, loss, backward, gradient all-reduce, Adam,
+BatchNorm statistics) through ``make_train_step`` over the group. Rank 0
+first runs the same step on the whole batch in one process and asserts
+that the group's loss and updated-parameter global norm equal it, at
+``dryrun_multichip``'s tolerances. Shapes as there: max-disp 32, 32x64,
+width 8, ``remat`` on, 2 pairs a rank.
+
+    python -m ecm_torch.parallel.dryrun --nproc 2                  # 2 CPU ranks, gloo
+    python -m ecm_torch.parallel.dryrun --nproc 2 --device cuda:0  # 2 ranks on one card, gloo
+    python -m torch.distributed.run --nproc_per_node 2 -m ecm_torch.parallel.dryrun
+
+Without ``torch.distributed.run``'s environment the module starts the
+ranks itself (``--nproc``, a free localhost port, ``--timeout`` seconds for
+the whole run and for each collective), one torch thread a rank.
+``--cases FILE --out DIR`` runs, on every rank, the cases of a file that
+``torch.save`` wrote (a list of dicts, see :func:`run_case`) and writes
+``DIR/rank<r>.pt``: the tests and ``chip_smoke.py`` hold the group's step
+against a reference that way.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import socket
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+MAX_DISP, H, W, FEATURES, PER_RANK = 32, 32, 64, 8, 2
+ROOT = Path(__file__).resolve().parents[2]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch(argv: list[str], nproc: int, timeout: float) -> list[str]:
+    """Run ``python -m ecm_torch.parallel.dryrun *argv`` as ``nproc`` ranks
+    of one group on this host; every rank is killed when one fails or the
+    run outlasts ``timeout`` seconds. Returns each rank's standard output;
+    raises with the failing rank's standard error."""
+    base = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), WORLD_SIZE=str(nproc))
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-m", "ecm_torch.parallel.dryrun", *argv],
+            env={**base, "RANK": str(r), "LOCAL_RANK": str(r)}, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for r in range(nproc)
+    ]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {r} of {nproc} exited {p.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def dryrun_multichip(n_ranks: int, device: str = "cpu", backend: str = "gloo", timeout: float = 240.0) -> dict:
+    """The dry run on ``n_ranks`` ranks on ``device`` (every rank on the same
+    one, e.g. ``cuda:0``, over gloo; NCCL takes one card a rank). Returns
+    rank 0's record: the group's and one process's loss and parameter norm."""
+    outs = launch(["--device", device, "--backend", backend, "--timeout", str(timeout)], n_ranks, timeout)
+    line = [s for s in outs[0].splitlines() if s.startswith("dryrun ")][-1]
+    return json.loads(line[len("dryrun "):])
+
+
+def _to(batch: dict, device) -> dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def param_norm(model: torch.nn.Module) -> float:
+    return math.sqrt(sum(p.detach().double().square().sum().item() for p in model.parameters()))
+
+
+def _dryrun_rank(mesh, device) -> dict | None:
+    import torch.distributed as dist
+
+    from ecm_torch.models import build_model
+    from ecm_torch.parallel.sharding import batch_sharding, replicate
+    from ecm_torch.train.state import create_train_state, make_optimizer
+    from ecm_torch.train.steps import make_train_step
+
+    n = PER_RANK * mesh.data
+    rng = np.random.default_rng(0)
+    batch = {
+        "left": rng.normal(size=(n, H, W, 3)).astype(np.float32),
+        "right": rng.normal(size=(n, H, W, 3)).astype(np.float32),
+        "disparity": rng.uniform(1.0, MAX_DISP - 1, size=(n, H, W)).astype(np.float32),
+    }
+
+    def one_step(batch, mesh=None):
+        # every rank draws its own weights; replicate gives each rank 0's
+        seed = 0 if mesh is None else mesh.rank
+        model = build_model("stackhourglass", device=device, max_disp=MAX_DISP, feature_channels=FEATURES,
+                            remat=True, generator=torch.Generator().manual_seed(seed))
+        if mesh is not None:
+            norm = torch.tensor([param_norm(replicate(model, mesh))] * 2, dtype=torch.float64, device=device)
+            dist.all_reduce(norm[:1], op=dist.ReduceOp.MIN, group=mesh.group)
+            dist.all_reduce(norm[1:], op=dist.ReduceOp.MAX, group=mesh.group)
+            if norm[0] != norm[1]:
+                raise AssertionError(f"replicate left the ranks' parameter norms in [{norm[0]}, {norm[1]}]")
+        state = create_train_state(model, make_optimizer(1e-3))
+        state, metrics = make_train_step(model, MAX_DISP, mesh)(state, _to(batch, device))
+        return float(metrics["loss"]), param_norm(model)
+
+    ref = one_step(batch) if mesh.rank == 0 else None
+    rows = batch_sharding(mesh, n)
+    loss, norm = one_step({k: v[rows] for k, v in batch.items()}, mesh)
+    if ref is None:
+        return None
+    ref_loss, ref_norm = ref
+    if not math.isfinite(loss):
+        raise AssertionError(f"non-finite loss {loss}")
+    # a wrong collective (a missed reduction, per-rank statistics) shifts the
+    # loss and the Adam update
+    if not abs(loss - ref_loss) <= 1e-3 * max(1.0, abs(ref_loss)):
+        raise AssertionError(f"loss {loss} over {mesh.data} ranks, {ref_loss} in one process")
+    if not abs(norm - ref_norm) <= 1e-4 * max(1.0, ref_norm):
+        raise AssertionError(f"parameter norm {norm} over {mesh.data} ranks, {ref_norm} in one process")
+    return dict(ranks=mesh.data, device=str(device), loss=loss, loss_one_process=ref_loss,
+                param_norm=norm, param_norm_one_process=ref_norm)
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().cpu().clone()
+
+
+def run_case(case: dict, mesh, device) -> dict:
+    """One case on this rank. ``case["kind"]``:
+
+    - ``"step"``: ``CONFIGS[case["config"]].model.build(**case["overrides"])``
+      (``case["double"]``: in f64) with ``case["state_dict"]``, one
+      ``make_train_step`` over the mesh on this rank's rows of
+      ``case["batch"]`` (global tensors) at learning rate ``case["lr"]``;
+      then ``case.get("timed_steps", 0)`` more steps, timed. Returns the
+      logged loss and metrics, this rank's predictions, the gradients of
+      ``case.get("grads")`` (every parameter for None), the state after the
+      step, the kernels' launch counts during it, the timed steps' ms and
+      the peak device memory.
+    - ``"bn"``: ``BatchNorm{case["ndim"]}d`` with ``case["state_dict"]`` in
+      training on this rank's rows of ``case["x"]``, backward from its rows
+      of ``case["dy"]``. Returns y, dx, the weight and bias gradients (this
+      rank's share) and the running statistics.
+    - ``"dryrun"``: the dry run; rank 0's record (None on the others).
+    - ``"loop"``: ``train_loop`` over the mesh on ``make_synthetic_pipeline``
+      batches (``case["pipeline"]``: PipelineConfig fields, ``h``, ``w``,
+      ``max_disp``), to step ``case["steps"][0]`` with a checkpoint every
+      ``case["ckpt_every"]`` steps in ``case["ckpt_dir"]`` and the JSONL at
+      ``case["metrics_path"]``, then on to ``case["steps"][1]``. Returns the
+      state after the last step.
+    """
+    from ecm_torch.configs import CONFIGS
+    from ecm_torch.models.layers import BatchNorm2d, BatchNorm3d
+    from ecm_torch.ops.launches import read_counts, reset_counts
+    from ecm_torch.parallel.sharding import batch_sharding, use_mesh
+    from ecm_torch.train import checkpoint as ckpt_lib
+    from ecm_torch.train.loop import train_loop
+    from ecm_torch.train.state import create_train_state, make_optimizer
+    from ecm_torch.train.steps import make_train_step
+
+    if case["kind"] == "dryrun":
+        return _dryrun_rank(mesh, device)
+    if case["kind"] == "bn":
+        bn = (BatchNorm2d if case["ndim"] == 2 else BatchNorm3d)(case["x"].shape[1])
+        bn.to(device, case["x"].dtype).load_state_dict(case["state_dict"])
+        bn.train()
+        rows = batch_sharding(mesh, case["x"].shape[0])
+        x = case["x"][rows].to(device).clone().requires_grad_(True)
+        with use_mesh(mesh):
+            y = bn(x)
+            y.backward(case["dy"][rows].to(device))
+        return dict(y=_host(y), dx=_host(x.grad), weight_grad=_host(bn.weight.grad),
+                    bias_grad=_host(bn.bias.grad), state={k: _host(v) for k, v in bn.state_dict().items()})
+
+    model = CONFIGS[case["config"]].model.build(device=device, **case.get("overrides", {}))
+    if case.get("double"):
+        model.double()
+    if "state_dict" in case:
+        model.load_state_dict(case["state_dict"])
+    state = create_train_state(model, make_optimizer(case.get("lr", 1e-3)))
+    step = make_train_step(model, model.max_disp, mesh)
+    if case["kind"] == "loop":
+        from ecm_torch.data.pipeline import PipelineConfig, make_synthetic_pipeline
+
+        pipe = dict(case["pipeline"])
+        h, w, max_disp = pipe.pop("h"), pipe.pop("w"), pipe.pop("max_disp")
+        data = make_synthetic_pipeline(PipelineConfig(**pipe), h=h, w=w, max_disp=max_disp)
+        manager = ckpt_lib.make_manager(case["ckpt_dir"])
+        for num_steps in case["steps"]:
+            state = train_loop(state, step, data, num_steps, mesh=mesh, log_every=1, ckpt_manager=manager,
+                               ckpt_every=case["ckpt_every"], metrics_path=case["metrics_path"])
+        return dict(step=state.step, state={k: _host(v) for k, v in model.state_dict().items()})
+
+    rows = batch_sharding(mesh, case["batch"]["left"].shape[0])
+    batch = {k: v[rows].to(device) for k, v in case["batch"].items()}
+    preds = []
+    hook = model.register_forward_hook(lambda m, i, o: preds.extend(p.detach() for p in o))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    state, metrics = step(state, batch)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    launches = read_counts()
+    hook.remove()
+    names = case.get("grads") or [n for n, _ in model.named_parameters()]
+    params = dict(model.named_parameters())
+    out = dict(
+        metrics={k: float(v) for k, v in metrics.items()}, preds=[_host(p) for p in preds],
+        grads={n: _host(params[n].grad) for n in names},
+        state={k: _host(v) for k, v in model.state_dict().items()}, launches=launches,
+    )
+    times = []
+    for _ in range(case.get("timed_steps", 0)):
+        t0 = time.perf_counter()
+        step(state, batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out.update(step_ms=times, step_ms_median=statistics.median(times) if times else None,
+               peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else None)
+    return out
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(description="data-parallel dry run over torch.distributed")
+    p.add_argument("--nproc", type=int, default=2, help="ranks to start when not under torch.distributed.run")
+    p.add_argument("--device", default="cpu", help="cpu, cuda (cuda:LOCAL_RANK) or cuda:K (every rank)")
+    p.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
+    p.add_argument("--timeout", type=float, default=240.0, help="seconds for the run and for each collective")
+    p.add_argument("--cases", default=None, help="a torch.save file of cases (see run_case)")
+    p.add_argument("--out", default=None, help="with --cases: a directory for rank<r>.pt")
+    args = p.parse_args(argv)
+    if "RANK" not in os.environ:
+        forwarded = argv if argv is not None else sys.argv[1:]
+        outs = launch(forwarded, args.nproc, args.timeout)
+        sys.stdout.write(outs[0])
+        return 0
+
+    import torch.distributed as dist
+
+    from ecm_torch.parallel.sharding import init_from_env, make_mesh
+
+    torch.set_num_threads(1)  # ranks share the host's cores
+    device = torch.device(init_from_env(args.device, args.backend, args.timeout))
+    try:
+        mesh = make_mesh()
+        if args.cases:
+            cases = torch.load(args.cases, weights_only=True)
+            results = {c["name"]: run_case(c, mesh, device) for c in cases}
+            os.makedirs(args.out, exist_ok=True)
+            torch.save(results, os.path.join(args.out, f"rank{mesh.rank}.pt"))
+        else:
+            record = _dryrun_rank(mesh, device)
+            if record is not None:
+                print("dryrun " + json.dumps(record), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

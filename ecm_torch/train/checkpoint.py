@@ -8,6 +8,12 @@ written to a temporary name and renamed into place, so a crash during a
 save never leaves a corrupt newest checkpoint; the newest ``keep`` are kept.
 An ``ecm_tpu`` checkpoint does not load here: it crosses only through
 ``ecm_torch.weights.from_flax``.
+
+In data-parallel training every rank holds the same state: rank 0 writes
+(``train_loop``) and every rank restores. The state is the model's own
+``state_dict``, never a ``DistributedDataParallel`` wrapper's (no
+``module.`` prefix), so a checkpoint moves freely between one process and
+several.
 """
 
 from __future__ import annotations

@@ -2,6 +2,10 @@
 iterator, metrics to stdout, JSONL and TensorBoard every ``log_every`` steps
 with the JAX package's log line, a checkpoint every ``ckpt_every`` steps and
 one at the end, resuming from ``state.step``.
+
+With a ``mesh`` (data-parallel ranks, each stepping on its rows of the
+global batch) the pair count is the global batch's, and only rank 0 prints
+and writes the JSONL, TensorBoard and checkpoint files.
 """
 
 from __future__ import annotations
@@ -25,11 +29,21 @@ def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, t
     return {k: torch.from_numpy(np.asarray(batch[k], np.float32)).to(device) for k in BATCH_KEYS}
 
 
+def _save(manager, step: int, state: TrainState, mesh) -> None:
+    """A checkpoint of ``state`` at ``step``: with a mesh, rank 0 writes it
+    and every rank returns once it is in place."""
+    if mesh is None or mesh.rank == 0:
+        ckpt_lib.save(manager, step, state)
+    if mesh is not None:
+        mesh.barrier()
+
+
 def train_loop(
     state: TrainState,
     train_step: Callable,
     data_iter: Iterator[dict[str, np.ndarray]],
     num_steps: int,
+    mesh=None,
     log_every: int = 20,
     ckpt_manager=None,
     ckpt_every: int = 1000,
@@ -40,12 +54,17 @@ def train_loop(
 ) -> TrainState:
     """Run steps ``state.step .. num_steps - 1``; batches go to the model's
     device. With ``ckpt_manager``: a checkpoint every ``ckpt_every`` steps
-    and one at ``num_steps``, each step number saved once. Returns the
+    and one at ``num_steps``, each step number saved once. ``mesh``: the
+    ``ecm_torch.parallel.Mesh`` that ``train_step`` steps over. Returns the
     state."""
     device = next(state.model.parameters()).device
-    log_f = open(metrics_path, "a") if metrics_path else None
+    ranks, main = (1, True) if mesh is None else (mesh.data, mesh.rank == 0)
+    # the steps saved, listed before any rank can write: every rank then
+    # takes the same decision at the end
+    saved = set(ckpt_manager.all_steps()) if ckpt_manager is not None else set()
+    log_f = open(metrics_path, "a") if metrics_path and main else None
     tb = None
-    if tensorboard_dir:
+    if tensorboard_dir and main:
         from ecm_torch.train.writers import MetricWriter
 
         tb = MetricWriter(logdir=tensorboard_dir)
@@ -55,8 +74,8 @@ def train_loop(
         for step in range(state.step, num_steps):
             batch = to_device(next(data_iter), device)
             state, metrics = train_step(state, batch)
-            window_images += batch["left"].shape[0]
-            if (step + 1) % log_every == 0 or step + 1 == num_steps:
+            window_images += batch["left"].shape[0] * ranks
+            if main and ((step + 1) % log_every == 0 or step + 1 == num_steps):
                 m = {k: float(v) for k, v in metrics.items()}
                 dt = time.perf_counter() - t0
                 m.update(
@@ -78,15 +97,17 @@ def train_loop(
                 t0 = time.perf_counter()
                 window_images = 0
             if ckpt_manager is not None and (step + 1) % ckpt_every == 0:
-                ckpt_lib.save(ckpt_manager, step + 1, state)
+                _save(ckpt_manager, step + 1, state, mesh)
+                saved.add(step + 1)
             if eval_fn is not None and eval_every and (step + 1) % eval_every == 0:
                 eval_metrics = eval_fn(state, step + 1)
-                print(f"eval @ {step + 1}: {eval_metrics}", flush=True)
+                if main:
+                    print(f"eval @ {step + 1}: {eval_metrics}", flush=True)
                 if log_f:
                     log_f.write(json.dumps({"step": step + 1, "eval": eval_metrics}) + "\n")
                     log_f.flush()
-        if ckpt_manager is not None and num_steps not in ckpt_manager.all_steps():
-            ckpt_lib.save(ckpt_manager, num_steps, state)
+        if ckpt_manager is not None and num_steps not in saved:
+            _save(ckpt_manager, num_steps, state, mesh)
     finally:
         if log_f:
             log_f.close()

@@ -5,33 +5,65 @@ the mode it needs (``train()``: batch-statistics BatchNorm, every head;
 ``eval()``: running statistics, the last head). The model's own dtype casts
 (bf16 activations, f32 parameters and statistics) are the mixed precision;
 there is no autocast.
+
+Data parallelism (``ecm_tpu`` shards the batch and lets GSPMD reduce): with
+a ``mesh`` the train step wraps the model in ``DistributedDataParallel``
+over the mesh's group and runs under ``use_mesh``, so that each rank's
+BatchNorm, loss and metrics see the global batch and DDP's mean of the
+ranks' gradients is the global batch's gradient; the optimizer, clipping
+included, then runs on identical gradients on every rank. DDP broadcasts
+rank 0's parameters and buffers when it wraps the model and no buffers
+after that (``broadcast_buffers=False``): the synced statistics keep the
+running buffers equal.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
+from ecm_torch.parallel.sharding import Mesh, reduction_mesh, use_mesh
 from ecm_torch.train.loss import stereo_loss
 from ecm_torch.train.metrics import disparity_metrics
 from ecm_torch.train.state import TrainState
 
 
-def make_train_step(model: nn.Module, max_disp: int):
+def data_parallel(model: nn.Module, mesh: Mesh) -> DistributedDataParallel:
+    """``model`` in ``DistributedDataParallel`` over ``mesh``'s group. Every
+    parameter of the port's models gets a gradient in a train step, so DDP
+    does not search for unused ones."""
+    device = next(model.parameters()).device
+    return DistributedDataParallel(
+        model,
+        device_ids=[device] if device.type == "cuda" else None,
+        broadcast_buffers=False,
+        process_group=mesh.group,
+    )
+
+
+def make_train_step(model: nn.Module, max_disp: int, mesh: Mesh | None = None):
     """``(state, batch) -> (state, metrics)``: one optimizer step on
     ``batch`` (tensors on the model's device: left/right ``[B, H, W, 3]``,
-    disparity ``[B, H, W]``). Metrics stay on the device."""
+    disparity ``[B, H, W]``; with ``mesh``, this rank's rows of the global
+    batch). Metrics stay on the device; with ``mesh`` they are the global
+    batch's on every rank."""
+    forward = model if mesh is None else data_parallel(model, mesh)
 
     def train_step(state: TrainState, batch: dict[str, torch.Tensor]):
-        model.train()
-        preds = model(batch["left"], batch["right"])
-        loss = stereo_loss(preds, batch["disparity"], max_disp)
-        state.optimizer.zero_grad()
-        loss.backward()
-        state.optimizer.step()
-        state.step += 1
-        metrics = {"loss": loss.detach()}
-        metrics.update(disparity_metrics(preds[-1].detach(), batch["disparity"], max_disp))
+        with use_mesh(mesh):
+            model.train()
+            preds = forward(batch["left"], batch["right"])
+            loss = stereo_loss(preds, batch["disparity"], max_disp)
+            state.optimizer.zero_grad()
+            loss.backward()
+            state.optimizer.step()
+            state.step += 1
+            loss = loss.detach()
+            if (reducing := reduction_mesh()) is not None:
+                loss = reducing.sum(loss) / reducing.data
+            metrics = {"loss": loss}
+            metrics.update(disparity_metrics(preds[-1].detach(), batch["disparity"], max_disp))
         return state, metrics
 
     return train_step

@@ -80,7 +80,8 @@ def from_flax(variables: Mapping, expected: Mapping[str, torch.Tensor]) -> dict[
         w = out[key]
         if tuple(w.shape) != tuple(ref.shape):
             raise ValueError(f"shape mismatch at {key}: flax {w.shape} vs torch {tuple(ref.shape)}")
-        sd[key] = torch.from_numpy(np.ascontiguousarray(w)).to(ref.dtype)
+        # a C-ordered copy; np.ascontiguousarray would make a 0-d array 1-d
+        sd[key] = torch.from_numpy(np.array(w, order="C")).to(ref.dtype)
     return sd
 
 

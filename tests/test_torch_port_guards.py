@@ -55,12 +55,14 @@ def test_build_model_without_gpu_raises(monkeypatch):
         CONFIGS["kitti_infer"].model.build()
 
 
-def test_unported_paths_raise():
-    """What is still to port raises: multi-process training and the
-    disparity mesh (ROADMAP queue 1, parallel). What earlier slices ported
-    runs: the training forward of both models (3 and 1 predictions), the
-    correlation volume with ``use_pallas=True``, and the trainer with
-    checkpoints."""
+def test_unported_paths_raise(monkeypatch):
+    """What is still to port raises: the disparity mesh (``--mesh-disp``
+    above 1, slice 10 of ROADMAP queue 1, parallel). What earlier slices
+    ported runs: the training forward of both models (3 and 1 predictions),
+    the correlation volume with ``use_pallas=True``, and the trainer with
+    checkpoints; ``--multihost`` (the data axis) no longer raises
+    ``NotImplementedError``: with no GPU and no ``--device`` it refuses the
+    CPU before it joins a group, and one process's training mesh is None."""
     from ecm_torch.cli import common
     from ecm_torch.configs import CONFIGS
     from ecm_torch.models import build_model
@@ -73,15 +75,18 @@ def test_unported_paths_raise():
     m = build_model(device="cpu", max_disp=16, feature_channels=8, cost_mode="correlation", use_pallas=True)
     with torch.inference_mode():
         assert m(*images)[0].shape == (1, 32, 48)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        common.maybe_init_distributed(common.base_parser("").parse_args(["--multihost"]))
     for argv in (["--mesh-disp", "2"], ["--config", "middlebury_disp_sharded"]):
         cfg = common.resolve_config(common.base_parser("").parse_args(argv), "kitti_infer")
-        with pytest.raises(NotImplementedError, match="parallel"):
+        with pytest.raises(NotImplementedError, match="slice 10 .*parallel"):
             common.eval_mesh(cfg)
-        with pytest.raises(NotImplementedError, match="parallel"):
+        with pytest.raises(NotImplementedError, match="slice 10 .*parallel"):
             common.make_mesh_from(cfg)
     assert common.make_mesh_from(CONFIGS["sceneflow_single"]) is None
+    assert common.eval_mesh(CONFIGS["kitti_infer"]) is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        common.maybe_init_distributed(common.base_parser("").parse_args(["--multihost"]))
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("cli", ["train", "finetune", "evaluate", "submission", "test_img"])
