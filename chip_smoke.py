@@ -14,7 +14,11 @@
    volume the device time by symbol (and the regression's plan,
    ``regression_plan``). The build fails on a ptxas spill in any
    instantiation of the conv core, of the pair's tensor-core kernel, of the
-   regression or of the correlation kernel.
+   regression or of the correlation kernel. Both cost-volume kernels are
+   also held over a first, an interior and a last rank's range of
+   disparities (``d_start``) of the ``disp`` phase's volume, against their
+   plain versions and the same planes of the whole volume: concat bit for
+   bit, correlation at 1e-2.
 2. Serves ``CONFIGS["kitti_infer"].model.build(...)`` at full width (seeded
    random weights) along four paths, each with every launch count set to 0
    just before it and read just after:
@@ -85,7 +89,32 @@
      ecm_torch.cli.train --multihost`` (NCCL at world size 1, DDP) for 2
      steps of ``sceneflow_dp`` on a SceneFlow-layout tree, whose checkpoint
      the single-process ``evaluate`` then restores.
-7. Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+7. Runs slice 10's disparity axis (``ecm_torch.parallel.halo``) on the one
+   card: four ranks of ``dryrun.launch`` share cuda:0 over gloo, each with
+   1/4 of the disparities at every level of the 3D stack:
+   - ``CONFIGS["middlebury_disp_sharded"]`` (BASELINE config 4, max-disp
+     384, width 32, bf16) with ``SLICE2_OVERRIDES`` at full width on one
+     seeded synthetic 1024x1504 pair (a Middlebury 2014 half-resolution
+     frame padded to a multiple of 32), random weights from seed 0, against
+     one process on the same pair: the gathered cost map at <= 3e-2, on
+     each rank 1/4/3/3/1/1 launches of the concat / ``conv3d_bn_s1`` /
+     ``_down`` / ``deconv3d_bn`` / pair / regression kernels a forward (0
+     just before, read just after), the disparity finite in [0, 383] and
+     the same on every rank;
+   - the same model in f32 on a 256x512 pair, the heads' conv2 scaled so
+     that the largest cost is 10 (``DISP_COST_MAX``): the disparity within
+     1e-3 px of one process's;
+   - ``python -m torch.distributed.run --nproc_per_node 4 -m
+     ecm_torch.cli.evaluate --config middlebury_disp_sharded --multihost
+     --mesh-disp 4 --dist-backend gloo`` (f32, ``--pallas``, from a
+     checkpoint with the f32 check's heads) on a Middlebury-layout tree of
+     2 scenes at 480x640, against ``evaluate`` in this process: every
+     metric within 1e-3.
+   It prints each rank's and the one process's ms a forward (median of 5),
+   peak memory and halo and gather traffic a forward, and the phase's wall
+   time. Four ranks on one card measure correctness and memory per rank,
+   not scaling.
+8. Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits nonzero without the last line.
@@ -811,11 +840,7 @@ def compare_train_paths(batch: dict) -> dict:
     out = {}
     for layout in ("grouped", "standard"):
         model = cfg.build(generator=torch.Generator().manual_seed(0), agg_layout=layout)
-        with torch.no_grad():
-            for i in (1, 2, 3):
-                head = getattr(model.aggregation, f"classif{i}").conv2
-                head.weight.mul_(1e-3)
-                head.bias.mul_(1e-3)
+        scale_heads(model, 1e-3)
         model.train()
         costs = []
         hook = model.aggregation.register_forward_hook(lambda m, i, o: costs.extend(c.detach().float() for c in o))
@@ -1240,11 +1265,7 @@ def par_reference(batch: dict) -> tuple[dict, dict]:
     model = cfg.model.build(generator=torch.Generator().manual_seed(0))
     if model.resolve_layout(torch.device("cuda")) != "grouped" or not model.remat:
         raise AssertionError(f"{PAR_CONFIG} does not resolve to the grouped layout with remat on CUDA")
-    with torch.no_grad():
-        for i in (1, 2, 3):
-            head = getattr(model.aggregation, f"classif{i}").conv2
-            head.weight.mul_(1e-3)
-            head.bias.mul_(1e-3)
+    scale_heads(model, 1e-3)
     start = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     state = create_train_state(model, make_optimizer(cfg.train.lr))
     step = make_train_step(model, cfg.model.max_disp)
@@ -1299,11 +1320,12 @@ def compare_ranks(ref: dict, ranks: list[dict]) -> dict:
     return dict(ranks=out)
 
 
-def run_session(cmd: list[str], timeout: float) -> subprocess.CompletedProcess:
-    """``cmd`` from the repository's root in a session of its own, killed
-    whole (the launcher and its workers) after ``timeout`` seconds."""
+def run_session(cmd: list[str], timeout: float, env: dict | None = None) -> subprocess.CompletedProcess:
+    """``cmd`` from the repository's root in a session of its own (with
+    ``env``, default this process's), killed whole (the launcher and its
+    workers) after ``timeout`` seconds."""
     proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+                            stderr=subprocess.PIPE, text=True, start_new_session=True, env=env)
     try:
         out, err = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -1391,6 +1413,243 @@ def parallel_phase(card: str, gen, sf: str, kt: str) -> dict:
         launches=compared["ranks"][0]["launches"], nccl=nccl, wall_s=wall, **compared)
 
 
+# the disp phase (slice 10): BASELINE config 4, the disparity axis, on the one
+# card: four ranks share cuda:0 over gloo (NCCL refuses two ranks on one device)
+DISP_CONFIG = "middlebury_disp_sharded"
+DISP_RANKS = CONFIGS[DISP_CONFIG].train.mesh_disp
+DISP_MAX_DISP = CONFIGS[DISP_CONFIG].model.max_disp  # 384; the CLIs need --maxdisp 384
+# a Middlebury 2014 half-resolution frame (about 1000x1500), padded to a
+# multiple of 32 as data/middlebury.py pads it
+DISP_H, DISP_W = 1024, 1504
+DISP_F32_H, DISP_F32_W = 256, 512
+DISP_TIMED = 5
+DISP_TIMEOUT = 600  # seconds, for each group of processes and each collective
+DISP_PX_TOL = 1e-3  # f32 disparity, as tests/test_parallel.py:193-195
+DISP_EPE_TOL = 1e-3
+# the f32 checks scale the heads' conv2 (scale_heads) so that the largest
+# cost of the f32 pair is this: at random init the costs reach 1e4-1e6,
+# where the soft-argmin is a hard argmax that a rounding flips at near-ties
+# (on the CPU, at 1e-3 of the init, costs of 2.5e3 moved a disparity by 0.079
+# px for cost maps 2e-6 apart); at 10 it reads every plane of every slab
+DISP_COST_MAX = 10.0
+DISP_CLI_SCENES, DISP_CLI_SIZE = 2, (480, 640)
+DISP_PER_FORWARD = dict(cost_volume_concat=1, conv3d_bn_s1=4, conv3d_bn_down=3, deconv3d_bn=3,
+                        fused_conv3d_pair=1, fused_upsample_softargmin=1)
+
+
+def check_cost_volume_ranges(gen) -> dict:
+    """Both builders over a first, an interior and a last rank's range of
+    ``middlebury_disp_sharded``'s D/4 (96 planes, 24 a rank; features
+    256x376x32 bf16): each kernel slab against its plain version and against
+    the same planes of the kernel's whole volume; concat bit-identical,
+    correlation at ``CORR_REL_TOL``."""
+    d4, per = DISP_MAX_DISP // 4, DISP_MAX_DISP // 4 // DISP_RANKS
+    fl = _rnd(gen, 1, DISP_H // 4, DISP_W // 4, C).bfloat16()
+    fr = _rnd(gen, 1, DISP_H // 4, DISP_W // 4, C).bfloat16()
+    out = {}
+    for mode, kernel, plain in (("concat", cvk.cost_volume_concat, cvk.cost_volume_concat_torch),
+                                ("correlation", cvk.cost_volume_correlation, cvk.cost_volume_correlation_torch)):
+        whole = kernel(fl, fr, d4)
+        ranges = []
+        for start in (0, per, d4 - per):
+            slab = kernel(fl, fr, per, start)
+            torch.cuda.synchronize()
+            ref = plain(fl, fr, per, start)
+            part = whole[:, start:start + per]
+            rel_plain, rel_whole = (((slab.float() - r.float()).abs().max() / r.float().abs().max().clamp_min(1e-30))
+                                    .item() for r in (ref, part))
+            row = dict(d_start=start, planes=per, rel_vs_plain=rel_plain, rel_vs_whole=rel_whole,
+                       equal_plain=torch.equal(slab, ref), equal_whole=torch.equal(slab, part))
+            ranges.append(row)
+            if mode == "concat" and not (row["equal_plain"] and row["equal_whole"]):
+                raise AssertionError(f"cost_volume_concat from d_start {start}: not bit-identical {row}")
+            if mode == "correlation" and not max(rel_plain, rel_whole) <= CORR_REL_TOL:
+                raise AssertionError(f"cost_volume_{mode} from d_start {start}: {row}")
+        out[mode] = ranges
+        del whole
+    log(f"phase kernels: d_start ranges {json.dumps(out)}")
+    return out
+
+
+def disp_case(name: str, bf16: bool, h: int, w: int, seed: int, head_scale: float = 1.0) -> dict:
+    """An eval case of ``DISP_CONFIG`` with ``SLICE2_OVERRIDES`` (grouped
+    dispatch, the concat and regression kernels) at full width, random
+    weights from seed 0 (the heads' conv2 scaled by ``head_scale``), on one
+    seeded synthetic pair of ``h`` x ``w`` (``dryrun.disp_eval``)."""
+    overrides = dict(SLICE2_OVERRIDES, dtype=torch.bfloat16 if bf16 else torch.float32)
+    model = CONFIGS[DISP_CONFIG].model.build(device="cpu", generator=torch.Generator().manual_seed(0), **overrides)
+    scale_heads(model, head_scale)
+    batch = make_batch(seed, 1, h, w, max_disp=0.8 * DISP_MAX_DISP)
+    return dict(name=name, kind="disp_eval", mesh=(1, DISP_RANKS), config=DISP_CONFIG, timed=DISP_TIMED,
+                overrides=overrides, state_dict=model.state_dict(),
+                batch={k: torch.from_numpy(batch[k]) for k in ("left", "right")})
+
+
+@torch.no_grad()
+def scale_heads(model, scale: float) -> None:
+    """The classifier heads' conv2 times ``scale``, and so the cost maps
+    (the regression's upsample is linear): see ``DISP_COST_MAX``."""
+    for i in (1, 2, 3):
+        head = getattr(model.aggregation, f"classif{i}").conv2
+        head.weight.mul_(scale)
+        head.bias.mul_(scale)
+
+
+def write_middlebury_tree(root: Path) -> str:
+    """``DISP_CLI_SCENES`` Middlebury-layout scenes of seeded synthetic
+    pairs (``make_pair``): ``im0.png``, ``im1.png``, ``disp0GT.pfm`` and
+    ``calib.txt`` with ``ndisp``."""
+    from PIL import Image
+
+    rng = np.random.default_rng(7)
+    for i in range(DISP_CLI_SCENES):
+        s = make_pair(rng, *DISP_CLI_SIZE, max_disp=0.5 * DISP_MAX_DISP, normalized=False)
+        scene = root / f"Scene{i}"
+        scene.mkdir(parents=True, exist_ok=True)
+        for side, name in (("left", "im0.png"), ("right", "im1.png")):
+            Image.fromarray(_uint8(s[side])).save(scene / name)
+        write_pfm(str(scene / "disp0GT.pfm"), s["disparity"])
+        (scene / "calib.txt").write_text(f"cam0=[1 0 0; 0 1 0; 0 0 1]\nndisp={DISP_MAX_DISP}\n")
+    return str(root)
+
+
+def disp_cli(root: Path, head_scale: float) -> dict:
+    """``evaluate --config middlebury_disp_sharded --multihost --mesh-disp 4
+    --dist-backend gloo`` under ``torch.distributed.run`` (four ranks on
+    cuda:0, TF32 off as here: in TF32 cuDNN's rounding moved the EPE by
+    0.06 px) and ``evaluate --mesh-disp 1`` in this process, on a
+    Middlebury-layout tree, in f32 from one checkpoint (random weights, the
+    heads' conv2 scaled by ``head_scale``), with ``--pallas`` (the
+    concat kernel over each rank's range): the metrics within
+    ``DISP_EPE_TOL``."""
+    tree = write_middlebury_tree(root / "middlebury")
+    args = ["--config", DISP_CONFIG, "--maxdisp", str(DISP_MAX_DISP), "--no-bf16", "--pallas",
+            "--dataset", "middlebury", "--datapath", tree, "--loadmodel", str(root / "ck")]
+    cfg = dataclasses.replace(CONFIGS[DISP_CONFIG].model, bf16=False)
+    state = create_train_state(cfg.build(generator=torch.Generator().manual_seed(0)))
+    scale_heads(state.model, head_scale)
+    ckpt_lib.save(ckpt_lib.make_manager(str(root / "ck")), 1, state)
+    del state
+    torch.cuda.empty_cache()
+    # the ranks run evaluate with TF32 off, as this process runs it
+    shim = root / "evaluate_f32.py"
+    shim.write_text("import sys\nimport torch\n\ntorch.backends.cudnn.allow_tf32 = False\n"
+                    "torch.backends.cuda.matmul.allow_tf32 = False\nfrom ecm_torch.cli import evaluate\n\n"
+                    "evaluate.main(sys.argv[1:])\n")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(DISP_RANKS), "--nnodes", "1",
+           "--master_addr", "localhost", "--master_port", str(dryrun.free_port()), str(shim),
+           *args, "--multihost", "--mesh-disp", str(DISP_RANKS), "--dist-backend", "gloo", "--device", "cuda:0",
+           "--dist-timeout", str(DISP_TIMEOUT)]
+    log(f"  disp: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    run = run_session(cmd, DISP_TIMEOUT, env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)})
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"evaluate --mesh-disp {DISP_RANKS} exited {run.returncode}: {run.stderr[-3000:]}")
+    if run.stdout.count(f"disp-sharded eval mesh: data 1, disp {DISP_RANKS}") != 1:
+        raise AssertionError(f"evaluate --mesh-disp {DISP_RANKS}: rank 0 alone must print the mesh: {run.stdout}")
+    sharded = json.loads(run.stdout.strip().splitlines()[-1])
+    one, out = drive("evaluate (one process)", cli_evaluate, [*args, "--mesh-disp", "1"],
+                     _pairs(DISP_CLI_SCENES, pallas=True))
+    metrics = json.loads(out.strip().splitlines()[-1])
+    diff = {k: abs(sharded[k] - v) for k, v in metrics.items()}
+    log(f"  disp evaluate: {DISP_RANKS} ranks {sharded}; one process {metrics}; wall {wall:.1f} s")
+    if sharded["num_pairs"] != DISP_CLI_SCENES or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"evaluate metrics {sharded} / {metrics}")
+    if not max(diff.values()) <= DISP_EPE_TOL:
+        raise AssertionError(f"evaluate on {DISP_RANKS} ranks against one process: |diff| {diff}")
+    return dict(sharded=sharded, one_process=metrics, abs_diff=diff, ranks_wall_s=wall, one_process_cli=one)
+
+
+def check_disp_ranks(name: str, ref: dict, ranks: list[dict], h: int, w: int) -> dict:
+    """Each rank's forward against one process's: the launches
+    (``DISP_PER_FORWARD``), the disparity finite in [0, max-disp - 1] and
+    the same on every rank; returns the cost map's and the disparity's
+    largest differences from the one process's."""
+    want = {k: DISP_PER_FORWARD.get(k, 0) for k in COUNTERS}
+    if ref["launches"] != want:
+        raise AssertionError(f"disp {name}: one process's launches {ref['launches']}, expected {want}")
+    cost_rel, disp_px = [], []
+    for r, got in enumerate(ranks):
+        if got["launches"] != want:
+            raise AssertionError(f"disp {name} rank {r}: launches {got['launches']}, expected {want}")
+        d = got["disp"]
+        if d.shape != (1, h, w) or not torch.isfinite(d).all() or d.min() < 0 or d.max() > DISP_MAX_DISP - 1:
+            raise AssertionError(f"disp {name} rank {r}: disparity {tuple(d.shape)} not finite in range")
+        if not torch.equal(d, ranks[0]["disp"]):
+            raise AssertionError(f"disp {name}: rank {r}'s disparity differs from rank 0's")
+        cost_rel.append(((got["cost"].float() - ref["cost"].float()).abs().max()
+                         / ref["cost"].float().abs().max()).item())
+        disp_px.append((d.float() - ref["disp"].float()).abs().max().item())
+    return dict(cost4_rel=cost_rel, disp_px=disp_px)
+
+
+def gloo_cuda_probe(root: Path) -> dict:
+    """Whether gloo all-gathers and sends CUDA tensors on this machine's
+    torch (two ranks on cuda:0; the halos stage them through host memory
+    either way, as gloo's documentation lists neither): rank 0's answers, or
+    how the ranks failed. A report, not a gate."""
+    torch.save([dict(name="gloo_cuda", kind="gloo_cuda")], root / "probe.pt")
+    try:
+        dryrun.launch(["--cases", str(root / "probe.pt"), "--out", str(root / "probe"), "--device", "cuda:0",
+                       "--backend", "gloo", "--timeout", "60"], 2, 120)
+    except (RuntimeError, subprocess.TimeoutExpired) as e:
+        return dict(failed=str(e)[-600:])
+    return torch.load(root / "probe" / "rank0.pt", weights_only=True)["gloo_cuda"]
+
+
+def disp_phase(card: str) -> dict:
+    """Slice 10's path, the disparity axis (see the module's docstring,
+    item 7): the ranks' forwards against one process's, then the CLI."""
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    unscaled = dryrun.disp_eval(disp_case("f32", False, DISP_F32_H, DISP_F32_W, 22), None, cuda)
+    head_scale = DISP_COST_MAX / unscaled["cost"].abs().max().item()
+    cases = [disp_case("bf16", True, DISP_H, DISP_W, 21),
+             disp_case("f32", False, DISP_F32_H, DISP_F32_W, 22, head_scale)]
+    refs = {}
+    for c in cases:
+        refs[c["name"]] = dryrun.disp_eval(c, None, cuda)
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="ecm_disp_") as tmp:
+        root = Path(tmp)
+        torch.save(cases, root / "cases.pt")
+        t0 = time.perf_counter()
+        dryrun.launch(["--cases", str(root / "cases.pt"), "--out", str(root), "--device", "cuda:0",
+                       "--backend", "gloo", "--timeout", str(DISP_TIMEOUT)], DISP_RANKS, DISP_TIMEOUT)
+        group_wall = time.perf_counter() - t0
+        ranks = [torch.load(root / f"rank{r}.pt", weights_only=True) for r in range(DISP_RANKS)]
+        bf16 = check_disp_ranks("bf16", refs["bf16"], [r["bf16"] for r in ranks], DISP_H, DISP_W)
+        if not max(bf16["cost4_rel"]) <= COST4_REL_TOL:
+            raise AssertionError(f"disp bf16: gathered cost map against one process's {bf16['cost4_rel']}")
+        f32 = check_disp_ranks("f32", refs["f32"], [r["f32"] for r in ranks], DISP_F32_H, DISP_F32_W)
+        if not max(f32["disp_px"]) <= DISP_PX_TOL:
+            raise AssertionError(f"disp f32: disparity against one process's {f32['disp_px']} px")
+        cli = disp_cli(root, head_scale)
+        probe = gloo_cuda_probe(root)
+    log(f"phase disp: gloo with CUDA tensors on torch {torch.__version__}: {probe}")
+    per_rank = []
+    for r, res in enumerate(ranks):
+        got = res["bf16"]
+        per_rank.append(dict(rank=r, ms=got["ms"], ms_median=got["ms_median"], peak_mem_gb=got["peak_mem_gb"],
+                             traffic=got["traffic"], f32_ms_median=res["f32"]["ms_median"],
+                             f32_traffic=res["f32"]["traffic"]))
+        log(f"phase disp: rank {r} of {DISP_RANKS} (gloo, four ranks on one shared card; not a scaling number): "
+            f"{DISP_H}x{DISP_W} max-disp {DISP_MAX_DISP} bf16 {got['ms_median']:.2f} ms a forward (runs "
+            f"{got['ms']}), peak {got['peak_mem_gb']:.3f} GB, traffic a forward {got['traffic']}; cost4 rel "
+            f"{bf16['cost4_rel'][r]:.3e}; f32 {DISP_F32_H}x{DISP_F32_W} disparity {f32['disp_px'][r]:.3e} px [{card}]")
+    one = refs["bf16"]
+    wall = time.perf_counter() - t_phase
+    log(f"phase disp: one process {DISP_H}x{DISP_W} bf16 {one['ms_median']:.2f} ms a forward (runs {one['ms']}), "
+        f"peak {one['peak_mem_gb']:.3f} GB; ranks {group_wall:.1f} s; CLI {cli['ranks_wall_s']:.1f} s; "
+        f"wall {wall:.1f} s [{card}]")
+    return dict(card=card, launches=ranks[0]["bf16"]["launches"], ranks=per_rank, bf16=bf16, f32=f32, cli=cli,
+                gloo_cuda=probe, f32_head_scale=head_scale, f32_unscaled_cost_max=unscaled["cost"].abs().max().item(),
+                one_process=dict(ms=one["ms"], ms_median=one["ms_median"], peak_mem_gb=one["peak_mem_gb"],
+                                 f32_ms_median=refs["f32"]["ms_median"]),
+                group_wall_s=group_wall, wall_s=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1425,6 +1684,10 @@ def main() -> int:
         check_conv3d_bn_s1(gen), check_conv3d_bn_down(gen), check_deconv3d_bn(gen),
         check_correlation(gen), check_gband_conv_s1(gen),
     ]
+    ranges = check_cost_volume_ranges(gen)
+    for k in kernels:
+        if k["name"] in ("cost_volume_concat", "cost_volume_correlation"):
+            k["d_start_ranges"] = ranges[k["name"].rsplit("_", 1)[1]]
     for k in kernels:
         log(f"phase kernels: {k['name']}: max|err| {k['max_abs_err']:.3e}, {k['ms']:.4f} ms, "
             f"plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}) [{card}]")
@@ -1464,9 +1727,13 @@ def main() -> int:
         log("phase cli [" + card + "]: " + json.dumps(cli))
         par = parallel_phase(card, gen, *cli["trees"])
     log("phase parallel [" + card + "]: " + json.dumps(par))
+    disp = disp_phase(card)
+    log("phase disp [" + card + "]: " + json.dumps(disp))
     paths.update(cli["runs"])
     paths["parallel_" + PAR_CONFIG] = par
     paths["parallel_nccl_evaluate"] = par["nccl"]["evaluate"]
+    paths["disp_" + DISP_CONFIG + "_rank0"] = disp
+    paths["disp_evaluate_one_process"] = disp["cli"]["one_process_cli"]
     # launches: each kernel's count on its main path (the grouped serving
     # path runs the six slice-1/2 kernels, basic_correlation the correlation
     # kernel, the train path gband_conv_s1: forwards + input gradients)

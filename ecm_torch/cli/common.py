@@ -17,8 +17,12 @@ Intended differences from the JAX package:
   take a subset of its devices). Only rank 0 prints and writes files;
   ``evaluate``, ``submission`` and ``test_img`` take the whole set on every
   rank, as ``ecm_tpu``'s do;
-- a disparity mesh (``--mesh-disp`` above 1) raises until slice 10 of the
-  port (ROADMAP queue 1, parallel) lands;
+- ``evaluate`` and ``submission`` with ``--mesh-disp N`` above 1 (the
+  ``middlebury_disp_sharded`` preset) need ``--multihost`` with N ranks and
+  shard the disparities over them (``ecm_torch.parallel.halo``): every rank
+  reads the same pair, rank 0 prints and writes. With ``--dist-backend
+  gloo`` ranks may share one card. Training with ``--mesh-disp`` above 1 is
+  slice 11 and raises ``NotImplementedError``;
 - no compile-cache settings: the kernel build cache in ``build/`` is their
   counterpart.
 """
@@ -68,7 +72,10 @@ def base_parser(description: str) -> argparse.ArgumentParser:
         choices=["off", "auto", "on"],
         help="standard-layout fused CUDA conv pairs (eval only)",
     )
-    p.add_argument("--mesh-disp", type=int, default=None, help="disp-axis mesh size (above 1: slice 10, not ported)")
+    p.add_argument(
+        "--mesh-disp", type=int, default=None,
+        help="disp-axis mesh size: evaluate/submission with --multihost on that many ranks (training: slice 11)",
+    )
     p.add_argument("--multihost", action="store_true", help="join torch.distributed.run's process group")
     p.add_argument(
         "--dist-backend",
@@ -146,7 +153,8 @@ def say(*a) -> None:
 def make_mesh_from(cfg: ExperimentConfig):
     """The training mesh: None for one process (the JAX package's answer
     on one device); under ``--multihost`` the data axis over every rank. A
-    disparity mesh raises."""
+    disparity mesh raises ``NotImplementedError``: training on that axis is
+    slice 11."""
     if cfg.train.mesh_disp > 1:
         raise NotImplementedError(f"--mesh-disp {cfg.train.mesh_disp}: {DISP_NOT_PORTED}")
     if not dist.is_initialized():
@@ -155,11 +163,18 @@ def make_mesh_from(cfg: ExperimentConfig):
 
 
 def eval_mesh(cfg: ExperimentConfig):
-    """The disparity-sharded eval mesh: None for ``mesh_disp <= 1``; above
-    that it raises."""
-    if cfg.train.mesh_disp > 1:
-        raise NotImplementedError(f"--mesh-disp {cfg.train.mesh_disp}: {DISP_NOT_PORTED}")
-    return None
+    """The disparity-sharded eval mesh (BASELINE config 4, Middlebury
+    high-res): ``make_mesh(data=1, disp=mesh_disp)`` over the ranks of
+    ``--multihost``, which must be ``mesh_disp`` of them (eval runs batch 1,
+    so the whole group goes to the disparity axis); None for ``mesh_disp <=
+    1``."""
+    disp = cfg.train.mesh_disp
+    if disp <= 1:
+        return None
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != disp:
+        raise ValueError(f"--mesh-disp {disp} needs --multihost with {disp} ranks, have {world}")
+    return make_mesh(data=1, disp=disp)
 
 
 def make_data_iter(cfg: ExperimentConfig):

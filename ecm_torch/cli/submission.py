@@ -3,7 +3,8 @@ reference's ``submission.py``): pads each test pair to 384x1248 (top and
 right), runs the eval forward, un-pads, and writes uint16 PNGs (disparity *
 256). The time printed beside each file runs from the host arrays to the
 disparity back on the host. With ``--multihost`` every rank runs every pair,
-as ``ecm_tpu``'s does, and rank 0 writes and prints.
+as ``ecm_tpu``'s does, and rank 0 writes and prints; with ``--mesh-disp N``
+the N ranks split each pair's disparities.
 
     python -m ecm_torch.cli.submission --datapath /data/kitti2015 \\
         --loadmodel ./ckpt_kitti --outdir ./disp_0
@@ -28,7 +29,7 @@ from ecm_torch.cli.common import (
 )
 from ecm_torch.data.kitti import list_kitti, load_sample, save_disp_png
 from ecm_torch.data.preprocess import unpad
-from ecm_torch.parallel import is_main_process
+from ecm_torch.parallel import is_main_process, use_mesh
 from ecm_torch.train.steps import make_infer_fn
 
 
@@ -40,7 +41,7 @@ def main(argv: list[str] | None = None) -> None:
     maybe_init_distributed(args)
     cfg = resolve_config(args, default_preset="kitti_infer")
 
-    eval_mesh(cfg)
+    mesh = eval_mesh(cfg)
     state, _ = restore(build_state(cfg, args.device, 0), args.loadmodel)
     device = next(state.model.parameters()).device
     infer = make_infer_fn(state.model)
@@ -54,7 +55,8 @@ def main(argv: list[str] | None = None) -> None:
         t0 = time.perf_counter()
         left = torch.from_numpy(sample["left"])[None].to(device)
         right = torch.from_numpy(sample["right"])[None].to(device)
-        disp = infer(left, right)[0].float().cpu().numpy()
+        with use_mesh(mesh):
+            disp = infer(left, right)[0].float().cpu().numpy()
         dt = time.perf_counter() - t0
         disp = unpad(disp, tuple(sample["pads"]))
         out = os.path.join(args.outdir, os.path.basename(spec.left))

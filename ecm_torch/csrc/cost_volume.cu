@@ -4,9 +4,11 @@
 // (the pallas_call in _concat_fwd), reached through
 // cost_volume_pallas(mode="concat").
 //
-// Computes, for fl, fr [B, H, W, C] and out [B, D, H, W, 2C]:
-//   out[b, d, h, w, :C]  = w >= d ? fl[b, h, w, :]     : 0
-//   out[b, d, h, w, C:]  = w >= d ? fr[b, h, w - d, :] : 0
+// Computes, for fl, fr [B, H, W, C] and out [B, D, H, W, 2C], plane i at
+// disparity d = d_start + i (d_start = 0 for the whole volume; a rank of a
+// disparity-sharded forward builds its own range of planes):
+//   out[b, i, h, w, :C]  = w >= d ? fl[b, h, w, :]     : 0
+//   out[b, i, h, w, C:]  = w >= d ? fr[b, h, w - d, :] : 0
 //
 // Bound on the H100: pure data movement. Each output byte is written once
 // (184.0 MB at B=1, 48x96x312, 2C=64 bf16) and the inputs are read once
@@ -22,8 +24,9 @@
 // Correlation. Replaces: ecm_tpu/ops/pallas_cost_volume.py, _corr_fwd_kernel
 // (the pallas_call in _corr_fwd), reached through
 // cost_volume_pallas(mode="correlation"). Computes, for fl, fr [B, H, W, C]
-// and out [B, D, H, W] (the [B, D, H, W, 1] volume):
-//   out[b, d, h, w] = w >= d ? sum_c fl[b, h, w, c] * fr[b, h, w - d, c] / C : 0
+// and out [B, D, H, W] (the [B, D, H, W, 1] volume), plane i at disparity
+// d = d_start + i:
+//   out[b, i, h, w] = w >= d ? sum_c fl[b, h, w, c] * fr[b, h, w - d, c] / C : 0
 // with products and sum in f32, rounded once at the store.
 //
 // Bound on the H100: bytes. At B=1, 96x312, C=32, D=48 in bf16 it reads
@@ -33,14 +36,15 @@
 // Design: a block per (b, h) row and tile of kCorrW = 64 columns, with all
 // D disparities of those columns, so each feature row is read from device
 // memory once (plus a halo of D columns of fr). The block stages fr's
-// columns w0 - D .. w0 + 64 and fl's w0 .. w0 + 63 into shared memory as
+// columns w0 - d_start - D .. w0 - d_start + 64 and fl's w0 .. w0 + 63 into shared memory as
 // f32, in coalesced 16-byte loads (zero outside the image, channels padded
 // with zeros to CP, a power of 2), even columns before odd ones, row pitch
 // CP + 2 words (an odd number of 8-byte units). Its 128 threads are
 // kCorrGroups = 4 groups of 32; thread (g, l) owns the two columns w0 + 2l
 // and w0 + 2l + 1, holds both fl rows in registers (f32), and walks the
-// D / 4 + 1 fr rows of its group's D / 4 disparities: fr row s is
-// fr[(w + 1) - d] for column w + 1 and fr[w - (d - 1)] for column w, so each
+// D / 4 + 1 fr rows of its group's D / 4 planes (fr's columns are staged from
+// w0 - d_start - D, so the plane offsets below are those of d_start = 0):
+// fr row s is fr[(w + 1) - d] for column w + 1 and fr[w - (d - 1)] for column w, so each
 // float2 shared load feeds four FMAs, and a warp's 32 threads read 32
 // neighbouring rows of one parity, 16 distinct bank pairs per half warp.
 // Sums in f32 (two per column), scaled by 1/C and rounded once at the
@@ -55,7 +59,7 @@ namespace {
 template <typename U>
 __global__ void concat_kernel(const U* __restrict__ fl, const U* __restrict__ fr,
                               U* __restrict__ out, int64_t total, int H, int W,
-                              int D, int units_c) {
+                              int D, int d_start, int units_c) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   // i enumerates (b, d, h, w, unit) with unit in [0, 2 * units_c)
@@ -66,7 +70,7 @@ __global__ void concat_kernel(const U* __restrict__ fl, const U* __restrict__ fr
   r /= W;
   const int h = (int)(r % H);
   r /= H;
-  const int d = (int)(r % D);
+  const int d = d_start + (int)(r % D);
   const int64_t b = r / D;
   U v;
   if (w < d) {
@@ -81,14 +85,14 @@ __global__ void concat_kernel(const U* __restrict__ fl, const U* __restrict__ fr
 
 template <typename U>
 cudaError_t launch(const void* fl, const void* fr, void* out, int B, int H,
-                   int W, int row_bytes, int D, cudaStream_t stream) {
+                   int W, int row_bytes, int D, int d_start, cudaStream_t stream) {
   const int units_c = row_bytes / (int)sizeof(U);
   const int64_t total = (int64_t)B * D * H * W * 2 * units_c;
   const int threads = 256;
   const int64_t blocks = (total + threads - 1) / threads;
   concat_kernel<U><<<(unsigned)blocks, threads, 0, stream>>>(
       static_cast<const U*>(fl), static_cast<const U*>(fr), static_cast<U*>(out),
-      total, H, W, D, units_c);
+      total, H, W, D, d_start, units_c);
   return cudaGetLastError();
 }
 
@@ -151,8 +155,8 @@ __device__ __forceinline__ void dot2(const float (&a0)[CP], const float (&a1)[CP
 template <typename T, int CP>
 __global__ void __launch_bounds__(kCorrThreads)
     correlation_kernel(const T* __restrict__ fl, const T* __restrict__ fr, T* __restrict__ out,
-                       int H, int W, int C, int D) {
-  // fr columns w0 - D .. w0 + kCorrW (parity-split), then fl columns w0 ..
+                       int H, int W, int C, int D, int d_start) {
+  // fr columns w0 - d_start - D .. w0 - d_start + kCorrW (parity-split), then fl columns w0 ..
   // w0 + kCorrW - 1 (parity-split), rows of CP + 2 words
   extern __shared__ float rows[];
   constexpr int pitch = CP + 2;
@@ -160,7 +164,7 @@ __global__ void __launch_bounds__(kCorrThreads)
   const int b = bh / H, h = bh - b * H;
   const int w0 = blockIdx.x * kCorrW, cols = kCorrW + D + 1, half = (cols + 1) / 2;
   float* lrows = rows + 2 * half * pitch;
-  stage_columns<T, CP>(rows, fr + (size_t)bh * W * C, w0 - D, cols, W, C);
+  stage_columns<T, CP>(rows, fr + (size_t)bh * W * C, w0 - d_start - D, cols, W, C);
   stage_columns<T, CP>(lrows, fl + (size_t)bh * W * C, w0, kCorrW, W, C);
   __syncthreads();
   const int l = threadIdx.x % 32, g = threadIdx.x / 32, w = w0 + 2 * l;  // columns w, w + 1
@@ -172,9 +176,9 @@ __global__ void __launch_bounds__(kCorrThreads)
     const float2 v1 = *reinterpret_cast<const float2*>(lrows + (kCorrW / 2 + l) * pitch + c);
     a0[c] = v0.x, a0[c + 1] = v0.y, a1[c] = v1.x, a1[c + 1] = v1.y;
   }
-  // group g: disparities d0 .. d1 - 1 of both columns, from the rows
-  // s = w + 1 - d0 - k, k = 0 .. d1 - d0: row k is fr[(w + 1) - (d0 + k)]
-  // and fr[w - (d0 + k - 1)]
+  // group g: planes d0 .. d1 - 1 of both columns (disparity d_start + d),
+  // from the rows s = w + 1 - d_start - d0 - k, k = 0 .. d1 - d0: row k is
+  // fr[(w + 1) - (d_start + d0 + k)] and fr[w - (d_start + d0 + k - 1)]
   const int per = (D + kCorrGroups - 1) / kCorrGroups;
   const int d0 = g * per, d1 = min(D, d0 + per);
   const float inv_c = 1.0f / (float)C;
@@ -182,20 +186,20 @@ __global__ void __launch_bounds__(kCorrThreads)
   const bool second = w + 1 < W;
 #pragma unroll 2
   for (int k = 0; k <= d1 - d0; ++k) {
-    // staged index of row s is s - (w0 - D) = 2 l + q: region q & 1, slot l + q / 2
+    // staged index of row s is s - (w0 - d_start - D) = 2 l + q: region q & 1, slot l + q / 2
     const int q = D + 1 - d0 - k;
     const float* r = rows + ((q & 1) * half + l + (q >> 1)) * pitch;
     const int d = d0 + k;
     float v0, v1;
     dot2<CP>(a0, a1, r, v0, v1);
-    if (d < d1 && second) store(o + (size_t)d * H * W + 1, w + 1 >= d ? v1 * inv_c : 0.f);
-    if (k > 0) store(o + (size_t)(d - 1) * H * W, w >= d - 1 ? v0 * inv_c : 0.f);
+    if (d < d1 && second) store(o + (size_t)d * H * W + 1, w + 1 >= d_start + d ? v1 * inv_c : 0.f);
+    if (k > 0) store(o + (size_t)(d - 1) * H * W, w >= d_start + d - 1 ? v0 * inv_c : 0.f);
   }
 }
 
 template <typename T, int CP>
 cudaError_t launch_correlation(const void* fl, const void* fr, void* out, int B, int H, int W,
-                               int C, int D, cudaStream_t stream) {
+                               int C, int D, int d_start, cudaStream_t stream) {
   const size_t smem = (size_t)((kCorrW + D + 2) / 2 * 2 + kCorrW) * (CP + 2) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -204,41 +208,46 @@ cudaError_t launch_correlation(const void* fl, const void* fr, void* out, int B,
   }
   const dim3 grid((W + kCorrW - 1) / kCorrW, (unsigned)((size_t)B * H));
   correlation_kernel<T, CP><<<grid, kCorrThreads, smem, stream>>>(
-      static_cast<const T*>(fl), static_cast<const T*>(fr), static_cast<T*>(out), H, W, C, D);
+      static_cast<const T*>(fl), static_cast<const T*>(fr), static_cast<T*>(out), H, W, C, D, d_start);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_correlation(const void* fl, const void* fr, void* out, int B, int H, int W,
-                                 int C, int D, cudaStream_t stream) {
-  if (C <= 8) return launch_correlation<T, 8>(fl, fr, out, B, H, W, C, D, stream);
-  if (C <= 16) return launch_correlation<T, 16>(fl, fr, out, B, H, W, C, D, stream);
-  if (C <= 32) return launch_correlation<T, 32>(fl, fr, out, B, H, W, C, D, stream);
-  if (C <= 64) return launch_correlation<T, 64>(fl, fr, out, B, H, W, C, D, stream);
+                                 int C, int D, int d_start, cudaStream_t stream) {
+  if (C <= 8) return launch_correlation<T, 8>(fl, fr, out, B, H, W, C, D, d_start, stream);
+  if (C <= 16) return launch_correlation<T, 16>(fl, fr, out, B, H, W, C, D, d_start, stream);
+  if (C <= 32) return launch_correlation<T, 32>(fl, fr, out, B, H, W, C, D, d_start, stream);
+  if (C <= 64) return launch_correlation<T, 64>(fl, fr, out, B, H, W, C, D, d_start, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Correlation volume. dtype: 0 = float32, 1 = bfloat16 (fl, fr and out).
-// out is [B, D, H, W]. C <= 64 (else cudaErrorInvalidValue); needs
+// out is [B, D, H, W], plane i at disparity d_start + i (d_start >= 0).
+// C <= 64 (else cudaErrorInvalidValue); needs
 // (128 + D + 2) * (CP + 2) * 4 bytes of shared memory, CP the power of 2 from
 // 8 to 64 at or above C (at most 227 KB).
 extern "C" int ecm_cost_volume_correlation(int dtype, const void* fl, const void* fr, void* out,
-                                           int B, int H, int W, int C, int D, void* stream) {
+                                           int B, int H, int W, int C, int D, int d_start,
+                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return dispatch_correlation<__nv_bfloat16>(fl, fr, out, B, H, W, C, D, s);
-  return dispatch_correlation<float>(fl, fr, out, B, H, W, C, D, s);
+  if (d_start < 0) return cudaErrorInvalidValue;
+  if (dtype == 1) return dispatch_correlation<__nv_bfloat16>(fl, fr, out, B, H, W, C, D, d_start, s);
+  return dispatch_correlation<float>(fl, fr, out, B, H, W, C, D, d_start, s);
 }
 
-// row_bytes = C * element size. All pointers must be 16-byte aligned.
+// row_bytes = C * element size; plane i at disparity d_start + i
+// (d_start >= 0). All pointers must be 16-byte aligned.
 extern "C" int ecm_cost_volume_concat(const void* fl, const void* fr, void* out,
                                       int B, int H, int W, int row_bytes, int D,
-                                      void* stream) {
+                                      int d_start, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (row_bytes % 16 == 0) return launch<uint4>(fl, fr, out, B, H, W, row_bytes, D, s);
-  if (row_bytes % 8 == 0) return launch<uint2>(fl, fr, out, B, H, W, row_bytes, D, s);
-  if (row_bytes % 4 == 0) return launch<uint32_t>(fl, fr, out, B, H, W, row_bytes, D, s);
-  if (row_bytes % 2 == 0) return launch<uint16_t>(fl, fr, out, B, H, W, row_bytes, D, s);
-  return launch<uint8_t>(fl, fr, out, B, H, W, row_bytes, D, s);
+  if (d_start < 0) return cudaErrorInvalidValue;
+  if (row_bytes % 16 == 0) return launch<uint4>(fl, fr, out, B, H, W, row_bytes, D, d_start, s);
+  if (row_bytes % 8 == 0) return launch<uint2>(fl, fr, out, B, H, W, row_bytes, D, d_start, s);
+  if (row_bytes % 4 == 0) return launch<uint32_t>(fl, fr, out, B, H, W, row_bytes, D, d_start, s);
+  if (row_bytes % 2 == 0) return launch<uint16_t>(fl, fr, out, B, H, W, row_bytes, D, d_start, s);
+  return launch<uint8_t>(fl, fr, out, B, H, W, row_bytes, D, d_start, s);
 }

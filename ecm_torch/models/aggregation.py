@@ -27,6 +27,12 @@ kernel runs:
   through ``conv3d_bn_down`` and conv6 with its ``+ cost0`` through
   ``deconv3d_bn``, and the last classifier through the fused pair kernel.
   ``fused`` is ignored, as in JAX.
+
+Under a mesh with a disparity axis (eval only) every 3D conv form runs on
+this rank's slab of the disparities, at each level of the hourglasses: the
+modules through ``ConvBN``/``ConvTransposeBN``, the kernels here through the
+``ecm_torch.parallel.halo`` form of their D arithmetic (``slab_s1`` with a
+halo of 1 for a conv, 2 for a fused pair; ``slab_down``; ``slab_up``).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from ecm_torch.models.layers import ConvBN, ConvTransposeBN, conv, fold_bn, rema
 from ecm_torch.ops.cuda_fused_agg import fused_conv3d_pair
 from ecm_torch.ops.cuda_gband import conv3d_bn_down, conv3d_bn_s1
 from ecm_torch.ops.cuda_gdeconv import deconv3d_bn
+from ecm_torch.parallel.halo import slab_down, slab_s1, slab_up
 
 LAYOUTS = ("standard", "grouped")
 
@@ -67,7 +74,7 @@ class Hourglass(nn.Module):
         conv2 to conv5 stay on cuDNN, as they stay on XLA in JAX."""
         if kernels:
             c1 = self.conv1
-            out = conv3d_bn_down(x, c1.conv.weight, *fold_bn(c1.bn), relu=c1.relu)
+            out = slab_down(lambda v: conv3d_bn_down(v, c1.conv.weight, *fold_bn(c1.bn), relu=c1.relu), x)
         else:
             out = self.conv1(x)
         pre = self.conv2(out)
@@ -76,8 +83,11 @@ class Hourglass(nn.Module):
         post = F.relu(self.conv5(out) + (presqu if presqu is not None else pre))
         if kernels:
             c6 = self.conv6
-            out = deconv3d_bn(post, c6.deconv.weight, *fold_bn(c6.bn), residual, relu=c6.relu)
-            return out, pre, post
+
+            def conv6(v, add=None):
+                return deconv3d_bn(v, c6.deconv.weight, *fold_bn(c6.bn), add, relu=c6.relu)
+
+            return slab_up(conv6, post, residual), pre, post
         out = self.conv6(post)
         if residual is not None:
             out = out + residual
@@ -94,8 +104,8 @@ class ClassifHead(nn.Module):
 
     def forward(self, x: torch.Tensor, gband: bool = False) -> torch.Tensor:
         """``gband``: conv1 through ``gband_conv_s1`` (training, grouped)."""
-        y = self.conv1(x, gband=gband).movedim(-1, 1)
-        return conv(self.conv2, y).movedim(1, -1)
+        y = self.conv1(x, gband=gband)
+        return slab_s1(lambda v: conv(self.conv2, v.movedim(-1, 1)).movedim(1, -1), y)
 
 
 class ECMAggregation(nn.Module):
@@ -159,13 +169,13 @@ class ECMAggregation(nn.Module):
             cost0 = self._dres_kernels(volume, ctx2d)
         elif fused:
             ctx_map = cm0(ctx2d, return_map=True) if cm0 is not None else None
-            x = fused_conv3d_pair(
-                volume, *self._fold(self.dres0_1), *self._fold(self.dres0_2), ctx=ctx_map
-            )
-            cost0 = fused_conv3d_pair(
-                x, *self._fold(self.dres1_1), *self._fold(self.dres1_2),
+            x = slab_s1(lambda v: fused_conv3d_pair(
+                v, *self._fold(self.dres0_1), *self._fold(self.dres0_2), ctx=ctx_map
+            ), volume, halo=2)
+            cost0 = slab_s1(lambda v: fused_conv3d_pair(
+                v, *self._fold(self.dres1_1), *self._fold(self.dres1_2),
                 relu2=False, residual=True,
-            )
+            ), x, halo=2)
         else:  # the module chain: eval "standard", or training on either layout
             x = self.dres0_2(self.dres0_1(volume, gband=kernels), gband=kernels)
             if cm0 is not None:
@@ -199,10 +209,10 @@ class ECMAggregation(nn.Module):
             return costs
         head = getattr(self, f"classif{self.num_hourglass}")
         if fused or kernels:
-            cost = fused_conv3d_pair(
-                inp, *self._fold(head.conv1), head.conv2.weight,
-                torch.ones(1, device=inp.device), head.conv2.bias, relu2=False,
-            )
+            cost = slab_s1(lambda v: fused_conv3d_pair(
+                v, *self._fold(head.conv1), head.conv2.weight,
+                torch.ones(1, device=v.device), head.conv2.bias, relu2=False,
+            ), inp, halo=2)
         else:
             cost = head(inp)
         return [cost.squeeze(-1)]
@@ -216,12 +226,13 @@ class ECMAggregation(nn.Module):
         ctx_map = None
         if cm0 is not None and self.context_fusion == "add":
             ctx_map = cm0(ctx2d, return_map=True)[:, None]  # [B, 1, H, W, C]
-        x = conv3d_bn_s1(volume, *self._fold(self.dres0_1))
-        x = conv3d_bn_s1(x, *self._fold(self.dres0_2), ctx_map)
+        x = slab_s1(lambda v: conv3d_bn_s1(v, *self._fold(self.dres0_1)), volume)
+        x = slab_s1(lambda v, add=None: conv3d_bn_s1(v, *self._fold(self.dres0_2), add), x, add=ctx_map)
         if cm0 is not None and ctx_map is None:
             x = cm0(ctx2d, x)
-        y = conv3d_bn_s1(x, *self._fold(self.dres1_1))
-        return conv3d_bn_s1(y, *self._fold(self.dres1_2), x, relu=False)
+        y = slab_s1(lambda v: conv3d_bn_s1(v, *self._fold(self.dres1_1)), x)
+        # the residual is padded with zero planes, whose outputs are cropped
+        return slab_s1(lambda v, add: conv3d_bn_s1(v, *self._fold(self.dres1_2), add, relu=False), y, add=x)
 
     @staticmethod
     def _fold(m: ConvBN) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

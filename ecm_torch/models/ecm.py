@@ -9,6 +9,16 @@ three for ``ECMStereo`` and one for ``ECMBasic``.
 and W multiples of 16 (the /4 features meet two stride-2 hourglass levels);
 ``ECMBasic`` with residual blocks and needs multiples of 4. ``max_disp`` is a
 multiple of 4.
+
+Under a mesh with a disparity axis (``ecm_torch.parallel.use_mesh``, eval
+only) every rank of a disp group computes the features, builds the volume
+over its own range of disparities and aggregates its slab at every level;
+the quarter-resolution cost map is then gathered over the group
+(``halo.gather_d``) and every rank regresses the whole map, as GSPMD gathers
+the input of the Pallas regression in ``ecm_tpu`` (a ``pallas_call`` cannot
+be partitioned). The slabs must be equal and split every level into even
+planes: ``(max_disp / 16) % disp == 0`` for ``ECMStereo``, ``(max_disp / 4)
+% disp == 0`` for ``ECMBasic`` (GSPMD pads uneven shards; the port raises).
 """
 
 from __future__ import annotations
@@ -20,7 +30,8 @@ from ecm_torch.models.aggregation import LAYOUTS, ClassifHead, ECMAggregation
 from ecm_torch.models.context import ContextMapping
 from ecm_torch.models.features import FeatureExtraction
 from ecm_torch.models.layers import ConvBN, init_weights, remat
-from ecm_torch.parallel.sharding import constrain_volume
+from ecm_torch.parallel.halo import gather_d
+from ecm_torch.parallel.sharding import DISP_NOT_PORTED, constrain_volume, disp_mesh
 from ecm_torch.ops.cost_volume import cost_volume
 from ecm_torch.ops.cuda_regression import fused_upsample_softargmin
 from ecm_torch.ops.softargmin import disparity_regression
@@ -78,6 +89,11 @@ class _StereoModel(nn.Module):
     ``cost_maps`` to a disparity ``[B, H, W]``. ``remat`` (training only):
     activation checkpointing of the 3D blocks, as ``nn.remat`` in JAX."""
 
+    # under a disp mesh each rank's slab of the max_disp/4 planes is a
+    # multiple of this many planes (ECMStereo's two stride-2 levels need 4:
+    # even slabs at D/8, whole ones at D/16)
+    disp_split = 1
+
     def __init__(
         self, max_disp: int, cost_mode: str, use_pallas: bool, regress_mode: str, remat: bool
     ):
@@ -99,6 +115,31 @@ class _StereoModel(nn.Module):
             for c4 in self.cost_maps(left, right)
         ]
 
+    def _volume(self, fl: torch.Tensor, fr: torch.Tensor) -> torch.Tensor:
+        """The NDHWC cost volume of the features: the whole range of
+        ``max_disp / 4`` planes, or under a disp mesh this rank's slab."""
+        d4, d_start, planes = self.max_disp // 4, 0, self.max_disp // 4
+        mesh = disp_mesh()
+        if mesh is not None:
+            if self.training:
+                raise NotImplementedError(DISP_NOT_PORTED)
+            if d4 % (self.disp_split * mesh.disp):
+                need = 4 * self.disp_split
+                raise ValueError(
+                    f"{type(self).__name__} on a disp axis of {mesh.disp} ranks needs (max_disp / {need}) % disp "
+                    f"== 0 (equal slabs of even planes at every level), got max_disp {self.max_disp}"
+                )
+            d_start, planes = mesh.disp_range(d4)
+        vol = cost_volume(fl, fr, planes, mode=self.cost_mode, use_pallas=self.use_pallas, d_start=d_start)
+        return constrain_volume(vol)
+
+    @staticmethod
+    def _gathered(costs: list[torch.Tensor]) -> list[torch.Tensor]:
+        """The cost maps ``[B, D/4, H/4, W/4]``: each rank's slabs gathered
+        over its disp group under a disp mesh."""
+        mesh = disp_mesh()
+        return costs if mesh is None else [gather_d(c, mesh) for c in costs]
+
 
 class ECMStereo(_StereoModel):
     """Flagship stacked-hourglass ECM model.
@@ -111,6 +152,8 @@ class ECMStereo(_StereoModel):
     (:meth:`resolve_layout`). ``context_stages`` (0 = after dres0, i = at
     hourglass i's input) and ``num_hourglass`` are JAX's, passed to the
     aggregation."""
+
+    disp_split = 4
 
     def __init__(
         self,
@@ -161,9 +204,8 @@ class ECMStereo(_StereoModel):
             raise ValueError(f"ECMStereo needs H, W multiples of 16, got {h}x{w}")
         fl = self.feature(left)
         fr = self.feature(right)
-        vol = cost_volume(fl, fr, self.max_disp // 4, mode=self.cost_mode, use_pallas=self.use_pallas)
-        vol = constrain_volume(vol)
-        return self.aggregation(vol, fl, self.resolve_layout(vol.device))
+        vol = self._volume(fl, fr)
+        return self._gathered(self.aggregation(vol, fl, self.resolve_layout(vol.device)))
 
 
 class ResBlock3d(nn.Module):
@@ -214,9 +256,7 @@ class ECMBasic(_StereoModel):
             raise ValueError(f"ECMBasic needs H, W multiples of 4, got {h}x{w}")
         fl = self.feature(left)
         fr = self.feature(right)
-        vol = cost_volume(fl, fr, self.max_disp // 4, mode=self.cost_mode, use_pallas=self.use_pallas)
-        vol = constrain_volume(vol)
-        return self.aggregate(vol, fl)
+        return self._gathered(self.aggregate(self._volume(fl, fr), fl))
 
     def aggregate(self, vol: torch.Tensor, fl: torch.Tensor) -> list[torch.Tensor]:
         """The cost map of the NDHWC volume ``vol`` (left features ``fl``

@@ -11,7 +11,9 @@ below): the running variance folds in the *biased* batch variance, and
 :func:`remat` recomputes a block without updating the running statistics a
 second time, as ``nn.remat`` does. Under an active mesh
 (``ecm_torch.parallel.use_mesh``) the statistics are the global batch's, as
-flax's are under GSPMD's data sharding.
+flax's are under GSPMD's data sharding. Under a mesh with a disparity axis
+the 3D modules run on this rank's slab of the disparities
+(``ecm_torch.parallel.halo``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ecm_torch.ops.cuda_gband import gband_conv_s1
+from ecm_torch.parallel.halo import slab_down, slab_s1, slab_up
 from ecm_torch.parallel.sharding import active_mesh, reduction_mesh, use_mesh
 
 # single source of truth for the BatchNorm epsilon (torch default), shared by
@@ -236,7 +239,15 @@ class ConvBN(nn.Module):
 
     def forward(self, x: torch.Tensor, gband: bool = False) -> torch.Tensor:
         """``gband``: the conv through ``gband_conv_s1`` (a 3D stride-1 conv
-        of the full-resolution stack in training, JAX's ``GConv3D`` path)."""
+        of the full-resolution stack in training, JAX's ``GConv3D`` path). A
+        3D conv runs on this rank's disparity slab under a disp mesh."""
+        if isinstance(self.conv, nn.Conv3d):
+            if self.conv.stride[0] == 2:
+                return slab_down(self._forward, x)
+            return slab_s1(lambda v: self._forward(v, gband), x)
+        return self._forward(x, gband)
+
+    def _forward(self, x: torch.Tensor, gband: bool = False) -> torch.Tensor:
         if gband:
             y = gband_conv_s1(x, self.conv.weight)
             return self._bn_relu(y.movedim(-1, 1)).movedim(1, -1)
@@ -255,6 +266,10 @@ class ConvTransposeBN(nn.Module):
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """On this rank's disparity slab under a disp mesh."""
+        return slab_up(self._forward, x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.bn(conv(self.deconv, x.movedim(-1, 1)))
         return (F.relu(y) if self.relu else y).movedim(1, -1)
 

@@ -23,17 +23,19 @@ def cost_volume(
     max_disp: int,
     mode: str = "concat",
     use_pallas: bool = False,
+    d_start: int = 0,
 ) -> torch.Tensor:
     """Build the NDHWC cost volume from ``[B, H, W, C]`` features (1/4
     resolution), for every aggregation layout (the JAX package's grouped
-    builders emit the same volume disparity-folded).
+    builders emit the same volume disparity-folded): ``max_disp`` planes
+    from disparity ``d_start`` (a rank's range under disparity sharding).
 
     ``use_pallas=True`` runs the mode's CUDA kernel (differentiable)."""
     if mode not in ("concat", "correlation"):
         raise ValueError(f"unknown cost-volume mode: {mode!r}")
     if use_pallas:
         kernel = cost_volume_concat if mode == "concat" else cost_volume_correlation
-        return kernel(fl, fr, max_disp)
+        return kernel(fl, fr, max_disp, d_start)
     if mode == "concat":
-        return cost_volume_concat_torch(fl, fr, max_disp)
-    return cost_volume_correlation_torch(fl, fr, max_disp)
+        return cost_volume_concat_torch(fl, fr, max_disp, d_start)
+    return cost_volume_correlation_torch(fl, fr, max_disp, d_start)

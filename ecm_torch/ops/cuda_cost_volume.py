@@ -8,6 +8,11 @@ of their CUDA kernels (``ecm_torch/csrc/cost_volume.cu``; replace
 - correlation: ``[B, H, W, C]`` x2 -> ``[B, D, H, W, 1]``: the mean over C of
   ``fl[w] * fr[w - d]``, in f32, zero for ``w < d``.
 
+Every builder takes ``d_start``: plane ``i`` of a volume of ``max_disp``
+planes holds disparity ``d = d_start + i``, so a rank of a disparity-sharded
+forward builds only its own range (``ecm_torch.parallel.halo``). The default
+0 is the whole volume.
+
 The plain builders and both wrappers are differentiable through one
 closed-form VJP in plain torch per volume (``_concat_vjp``,
 ``_correlation_vjp``), the counterpart of the jnp builder's VJP that
@@ -28,21 +33,23 @@ from ecm_torch.kernels.build import check, library
 from ecm_torch.ops.cuda_gband import SMEM_PER_BLOCK
 
 
-def _concat_volume(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> torch.Tensor:
+def _concat_volume(fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_start: int = 0) -> torch.Tensor:
     b, h, w, c = fl.shape
     out = fl.new_zeros(b, max_disp, h, w, 2 * c)
-    for d in range(min(max_disp, w)):
-        out[:, d, :, d:, :c] = fl[:, :, d:]
-        out[:, d, :, d:, c:] = fr[:, :, : w - d]
+    for i in range(max(0, min(max_disp, w - d_start))):
+        d = d_start + i
+        out[:, i, :, d:, :c] = fl[:, :, d:]
+        out[:, i, :, d:, c:] = fr[:, :, : w - d]
     return out
 
 
-def _correlation_volume(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> torch.Tensor:
+def _correlation_volume(fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_start: int = 0) -> torch.Tensor:
     b, h, w, _ = fl.shape
     out = fl.new_zeros(b, max_disp, h, w, 1)
-    for d in range(min(max_disp, w)):
+    for i in range(max(0, min(max_disp, w - d_start))):
+        d = d_start + i
         prod = fl[:, :, d:].float() * fr[:, :, : w - d].float()
-        out[:, d, :, d:] = prod.mean(-1, keepdim=True).to(fl.dtype)
+        out[:, i, :, d:] = prod.mean(-1, keepdim=True).to(fl.dtype)
     return out
 
 
@@ -51,9 +58,10 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def _column_mask(max_disp: int, w: int, device) -> torch.Tensor:
-    """[D, W]: True where column w holds a value at disparity d (w >= d)."""
-    return torch.arange(w, device=device) >= torch.arange(max_disp, device=device)[:, None]
+def _column_mask(max_disp: int, w: int, device, d_start: int = 0) -> torch.Tensor:
+    """[D, W]: True where column w holds a value at plane i, disparity
+    d = d_start + i (w >= d)."""
+    return torch.arange(w, device=device) >= torch.arange(d_start, d_start + max_disp, device=device)[:, None]
 
 
 def _pad_columns(x: torch.Tensor, dim: int, before: int, after: int, dtype: torch.dtype) -> torch.Tensor:
@@ -66,6 +74,17 @@ def _pad_columns(x: torch.Tensor, dim: int, before: int, after: int, dtype: torc
     return out
 
 
+def _shift_columns(x: torch.Tensor, dim: int, shift: int, size: int, dtype: torch.dtype) -> torch.Tensor:
+    """A contiguous copy of ``x`` in ``dtype`` whose column j along ``dim``
+    is ``x``'s column j + shift (zero past the end), ``size`` columns."""
+    shape = list(x.shape)
+    shape[dim] = size
+    out = x.new_zeros(shape, dtype=dtype)
+    n = max(0, min(x.shape[dim] - shift, size))
+    out.narrow(dim, 0, n).copy_(x.narrow(dim, min(shift, x.shape[dim]), n))
+    return out
+
+
 def _along_diagonal(gp: torch.Tensor, w: int) -> torch.Tensor:
     """``gp`` [B, D, H, W + D - 1, ...] (contiguous) -> the view
     [B, D, H, W, ...] whose entry (b, d, h, j) is ``gp[b, d, h, j + d]``."""
@@ -74,31 +93,33 @@ def _along_diagonal(gp: torch.Tensor, w: int) -> torch.Tensor:
     return gp.as_strided((*gp.shape[:3], w, *gp.shape[4:]), st)
 
 
-def _concat_vjp(g: torch.Tensor, fl: torch.Tensor, fr: torch.Tensor, max_disp: int):
+def _concat_vjp(g: torch.Tensor, fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_start: int = 0):
     """Closed-form VJP of the concat volume, summed in f32 (f64 for f64)
-    and rounded once: ``dfl[w] = sum_d [w >= d] g[d, w, :C]`` and
-    ``dfr[j] = sum_d g[d, j + d, C:]`` (columns j + d < W)."""
+    and rounded once, plane i at disparity d = d_start + i:
+    ``dfl[w] = sum_i [w >= d] g[i, w, :C]`` and ``dfr[j] = sum_i g[i, j + d,
+    C:]`` (columns j + d < W)."""
     w, c = fl.shape[2:]
     acc = _acc_dtype(g.dtype)
-    mask = _column_mask(max_disp, w, g.device)[:, None, :, None]
+    mask = _column_mask(max_disp, w, g.device, d_start)[:, None, :, None]
     dfl = torch.where(mask, g[..., :c], 0).sum(1, dtype=acc)
-    gp = _pad_columns(g[..., c:], 3, 0, max_disp - 1, g.dtype)
+    gp = _shift_columns(g[..., c:], 3, d_start, w + max_disp - 1, g.dtype)
     dfr = _along_diagonal(gp, w).sum(1, dtype=acc)
     return dfl.to(fl.dtype), dfr.to(fr.dtype)
 
 
-def _correlation_vjp(g: torch.Tensor, fl: torch.Tensor, fr: torch.Tensor, max_disp: int):
+def _correlation_vjp(g: torch.Tensor, fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_start: int = 0):
     """Closed-form VJP of the correlation volume, in f32 (f64 for f64) and
-    rounded once: ``dfl[w] = sum_d [w >= d] g[d, w] fr[w - d] / C`` and
-    ``dfr[j] = sum_d g[d, j + d] fl[j + d] / C`` (columns j + d < W)."""
+    rounded once, plane i at disparity d = d_start + i:
+    ``dfl[w] = sum_i [w >= d] g[i, w] fr[w - d] / C`` and ``dfr[j] = sum_i
+    g[i, j + d] fl[j + d] / C`` (columns j + d < W)."""
     w, c = fl.shape[2:]
     acc = _acc_dtype(g.dtype)
-    gm = torch.where(_column_mask(max_disp, w, g.device)[:, None], g[..., 0], 0).to(acc)  # [B, D, H, W]
-    # frp[w + D - 1 - d] = fr[w - d] (0 for w < d); its windows k = D - 1 - d
-    frp = _pad_columns(fr, 2, max_disp - 1, 0, acc)
+    gm = torch.where(_column_mask(max_disp, w, g.device, d_start)[:, None], g[..., 0], 0).to(acc)  # [B, D, H, W]
+    # frp[w + D - 1 - i] = fr[w - d] (0 for w < d); its windows k = D - 1 - i
+    frp = _pad_columns(fr, 2, max_disp - 1 + d_start, 0, acc).narrow(2, 0, w + max_disp - 1)
     dfl = torch.einsum("bkhw,bhkcw->bhwc", gm.flip(1), frp.unfold(2, w, 1))
-    gd = _along_diagonal(_pad_columns(gm, 3, 0, max_disp - 1, acc), w)  # g[d, j + d]
-    flp = _pad_columns(fl, 2, 0, max_disp - 1, acc)  # window d: fl[j + d]
+    gd = _along_diagonal(_shift_columns(gm, 3, d_start, w + max_disp - 1, acc), w)  # g[i, j + d]
+    flp = _shift_columns(fl, 2, d_start, w + max_disp - 1, acc)  # window i: fl[j + d]
     dfr = torch.einsum("bdhj,bhdcj->bhjc", gd, flp.unfold(2, w, 1))
     return (dfl / c).to(fl.dtype), (dfr / c).to(fr.dtype)
 
@@ -108,9 +129,9 @@ def _kernel(name: str):
     fn = getattr(library("cost_volume"), name)
     vp, i = ctypes.c_void_p, ctypes.c_int
     if name == "ecm_cost_volume_concat":
-        fn.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+        fn.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp]
     else:
-        fn.argtypes = [i, vp, vp, vp, i, i, i, i, i, vp]
+        fn.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -130,15 +151,15 @@ def _check_cuda(fl: torch.Tensor, fr: torch.Tensor) -> None:
             raise ValueError("fl/fr must be contiguous and 16-byte aligned")
 
 
-def _concat_forward(fl, fr, max_disp):
+def _concat_forward(fl, fr, max_disp, d_start):
     if fl.device.type == "cpu":
-        return _concat_volume(fl, fr, max_disp)
+        return _concat_volume(fl, fr, max_disp, d_start)
     _check_cuda(fl, fr)
     b, h, w, c = fl.shape
     out = torch.empty(b, max_disp, h, w, 2 * c, dtype=fl.dtype, device=fl.device)
     status = _kernel("ecm_cost_volume_concat")(
         fl.data_ptr(), fr.data_ptr(), out.data_ptr(), b, h, w,
-        c * fl.element_size(), max_disp, torch.cuda.current_stream(fl.device).cuda_stream,
+        c * fl.element_size(), max_disp, d_start, torch.cuda.current_stream(fl.device).cuda_stream,
     )
     check(status, "cost_volume_concat")
     cost_volume_concat.launches += 1
@@ -153,9 +174,9 @@ def _correlation_smem(c: int, max_disp: int) -> int:
     return ((64 + max_disp + 2) // 2 * 2 + 64) * (cp + 2) * 4
 
 
-def _correlation_forward(fl, fr, max_disp):
+def _correlation_forward(fl, fr, max_disp, d_start):
     if fl.device.type == "cpu":
-        return _correlation_volume(fl, fr, max_disp)
+        return _correlation_volume(fl, fr, max_disp, d_start)
     if fl.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"cost_volume_correlation takes float32 or bfloat16, got {fl.dtype}")
     _check_cuda(fl, fr)
@@ -165,7 +186,7 @@ def _correlation_forward(fl, fr, max_disp):
     out = torch.empty(b, max_disp, h, w, 1, dtype=fl.dtype, device=fl.device)
     status = _kernel("ecm_cost_volume_correlation")(
         int(fl.dtype == torch.bfloat16), fl.data_ptr(), fr.data_ptr(), out.data_ptr(),
-        b, h, w, c, max_disp, torch.cuda.current_stream(fl.device).cuda_stream,
+        b, h, w, c, max_disp, d_start, torch.cuda.current_stream(fl.device).cuda_stream,
     )
     check(status, "cost_volume_correlation")
     cost_volume_correlation.launches += 1
@@ -178,46 +199,58 @@ class _CostVolume(torch.autograd.Function):
     or copied under autograd."""
 
     @staticmethod
-    def forward(ctx, fl, fr, max_disp, forward, vjp):
+    def forward(ctx, fl, fr, max_disp, d_start, forward, vjp):
         ctx.save_for_backward(fl, fr)
-        ctx.max_disp, ctx.vjp = max_disp, vjp
-        return forward(fl, fr, max_disp)
+        ctx.max_disp, ctx.d_start, ctx.vjp = max_disp, d_start, vjp
+        return forward(fl, fr, max_disp, d_start)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         fl, fr = ctx.saved_tensors
-        return (*ctx.vjp(g, fl, fr, ctx.max_disp), None, None, None)
+        return (*ctx.vjp(g, fl, fr, ctx.max_disp, ctx.d_start), None, None, None, None)
 
 
-def cost_volume_concat_torch(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> torch.Tensor:
+def _check_range(max_disp: int, d_start: int) -> None:
+    if max_disp < 1 or d_start < 0:
+        raise ValueError(f"a volume of {max_disp} planes from disparity {d_start}")
+
+
+def cost_volume_concat_torch(fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_start: int = 0) -> torch.Tensor:
     """Plain PyTorch concat volume (the CPU path and the kernel's
-    reference), by slice assignment; differentiable through its
-    closed-form VJP."""
-    return _CostVolume.apply(fl, fr, max_disp, _concat_volume, _concat_vjp)
+    reference), by slice assignment: ``max_disp`` planes from disparity
+    ``d_start``; differentiable through its closed-form VJP."""
+    _check_range(max_disp, d_start)
+    return _CostVolume.apply(fl, fr, max_disp, d_start, _concat_volume, _concat_vjp)
 
 
-def cost_volume_correlation_torch(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> torch.Tensor:
+def cost_volume_correlation_torch(
+    fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_start: int = 0
+) -> torch.Tensor:
     """Plain PyTorch correlation volume (the CPU path and the kernel's
-    reference): products and mean in f32, rounded to fl's dtype;
-    differentiable through its closed-form VJP."""
-    return _CostVolume.apply(fl, fr, max_disp, _correlation_volume, _correlation_vjp)
+    reference): ``max_disp`` planes from disparity ``d_start``, products and
+    mean in f32, rounded to fl's dtype; differentiable through its
+    closed-form VJP."""
+    _check_range(max_disp, d_start)
+    return _CostVolume.apply(fl, fr, max_disp, d_start, _correlation_volume, _correlation_vjp)
 
 
-def cost_volume_concat(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> torch.Tensor:
-    """Concat volume through the CUDA kernel for CUDA tensors; the plain
-    version for CPU tensors. Differentiable. Counts its launches in
-    ``.launches``."""
+def cost_volume_concat(fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_start: int = 0) -> torch.Tensor:
+    """Concat volume of ``max_disp`` planes from disparity ``d_start``
+    through the CUDA kernel for CUDA tensors; the plain version for CPU
+    tensors. Differentiable. Counts its launches in ``.launches``."""
     _check(fl, fr)
-    return _CostVolume.apply(fl, fr, max_disp, _concat_forward, _concat_vjp)
+    _check_range(max_disp, d_start)
+    return _CostVolume.apply(fl, fr, max_disp, d_start, _concat_forward, _concat_vjp)
 
 
-def cost_volume_correlation(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> torch.Tensor:
-    """Correlation volume through the CUDA kernel for CUDA tensors; the plain
-    version for CPU tensors. Differentiable. Counts its launches in
-    ``.launches``."""
+def cost_volume_correlation(fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_start: int = 0) -> torch.Tensor:
+    """Correlation volume of ``max_disp`` planes from disparity ``d_start``
+    through the CUDA kernel for CUDA tensors; the plain version for CPU
+    tensors. Differentiable. Counts its launches in ``.launches``."""
     _check(fl, fr)
-    return _CostVolume.apply(fl, fr, max_disp, _correlation_forward, _correlation_vjp)
+    _check_range(max_disp, d_start)
+    return _CostVolume.apply(fl, fr, max_disp, d_start, _correlation_forward, _correlation_vjp)
 
 
 cost_volume_concat.launches = 0

@@ -1,8 +1,10 @@
-"""Data parallelism of the port (``ecm_tpu.parallel``): a ``("data",
-"disp")`` mesh over a ``torch.distributed`` process group, global-batch
-BatchNorm, loss and metrics under :func:`use_mesh`, and ``dryrun`` (the
-counterpart of ``__graft_entry__.dryrun_multichip``). The disparity axis is
-slice 10 of the port."""
+"""Parallelism of the port (``ecm_tpu.parallel``): a ``("data", "disp")``
+mesh over a ``torch.distributed`` process group; on the data axis,
+global-batch BatchNorm, loss and metrics under :func:`use_mesh`; on the
+disparity axis (eval), each rank's slab of the disparities with the halo
+exchanges of ``halo``; and ``dryrun`` (the counterpart of
+``__graft_entry__.dryrun_multichip``). Training on the disparity axis is
+slice 11 of the port."""
 
 from ecm_torch.parallel.sharding import (
     Mesh,

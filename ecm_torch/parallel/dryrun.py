@@ -19,13 +19,15 @@ ranks itself (``--nproc``, a free localhost port, ``--timeout`` seconds for
 the whole run and for each collective), one torch thread a rank.
 ``--cases FILE --out DIR`` runs, on every rank, the cases of a file that
 ``torch.save`` wrote (a list of dicts, see :func:`run_case`) and writes
-``DIR/rank<r>.pt``: the tests and ``chip_smoke.py`` hold the group's step
-against a reference that way.
+``DIR/rank<r>.pt``: the tests and ``chip_smoke.py`` hold the group's step,
+and the disparity axis's primitives, conv forms and eval forward, against a
+reference that way.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -149,6 +151,146 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().cpu().clone()
 
 
+def _slab(t: torch.Tensor, mesh, scale: float = 1.0) -> torch.Tensor:
+    """This rank's planes of a global ``[B, D, ...]`` tensor whose planes
+    are ``scale`` times the volume's (``scale`` 2 for a transposed conv's
+    output)."""
+    start, length = mesh.disp_range(round(t.shape[1] / scale))
+    return t[:, round(start * scale):round((start + length) * scale)]
+
+
+def _halo_case(case: dict, mesh, device) -> dict:
+    from ecm_torch.parallel import halo
+
+    vol = _slab(case["vol"], mesh).to(device)
+    out = {f"halo{h}": _host(halo.halo_exchange_d(vol, mesh, h)) for h in (1, 2)}
+    out["conv"] = _host(halo.conv3d_d_sharded(vol, case["weight"].to(device), mesh))
+    out["gather"] = _host(halo.gather_d(vol, mesh))
+    out.update({name: _host(halo.softargmin_d_sharded(_slab(c, mesh).to(device), mesh))
+                for name, c in case["costs"].items()})
+    return out
+
+
+def _slab_form(case: dict, mesh, device) -> torch.Tensor:
+    """One 3D conv form of the eval forward on this rank's slab of
+    ``case["x"]``, through the helper of ``halo`` that the model uses for it:
+    a module (``ConvBN``, ``ConvTransposeBN``, ``ClassifHead`` with
+    ``case["module_args"]`` and ``case["state_dict"]``, which pick their
+    helper themselves) or a kernel's wrapper (``case["kernel"]`` with the
+    tensors ``case["args"]``, the keywords ``case["kwargs"]`` and an
+    ``add``: a ``[B, 1, ...]`` context map, a residual of x's planes, or for
+    ``deconv3d_bn`` one of the output's planes)."""
+    from ecm_torch.models import aggregation, layers
+    from ecm_torch.ops import cuda_fused_agg, cuda_gband, cuda_gdeconv
+    from ecm_torch.parallel import halo
+
+    x = _slab(case["x"], mesh).to(device)
+    if "module" in case:
+        cls = {"ConvBN": layers.ConvBN, "ConvTransposeBN": layers.ConvTransposeBN,
+               "ClassifHead": aggregation.ClassifHead}[case["module"]]
+        module = cls(*case["module_args"]).to(device).eval()
+        module.load_state_dict(case["state_dict"])
+        return module(x)
+    name, kw = case["kernel"], case.get("kwargs", {})
+    args = [a.to(device) for a in case["args"]]
+    add = case.get("add")
+    if add is not None and add.shape[1] != 1:
+        add = _slab(add, mesh, 2.0 if name == "deconv3d_bn" else 1.0)
+    add = None if add is None else add.to(device)
+    if name == "conv3d_bn_s1":
+        return halo.slab_s1(lambda v, a=None: cuda_gband.conv3d_bn_s1(v, *args, a, **kw), x, add=add)
+    if name == "conv3d_bn_down":
+        return halo.slab_down(lambda v: cuda_gband.conv3d_bn_down(v, *args, **kw), x)
+    if name == "deconv3d_bn":
+        return halo.slab_up(lambda v, a=None: cuda_gdeconv.deconv3d_bn(v, *args, a, **kw), x, add)
+    if name == "fused_conv3d_pair":
+        ctx = None if add is None else add[:, 0]
+        return halo.slab_s1(lambda v: cuda_fused_agg.fused_conv3d_pair(v, *args, ctx, **kw), x, halo=2)
+    raise ValueError(f"unknown kernel form {name!r}")
+
+
+def disp_eval(case: dict, mesh, device) -> dict:
+    """``CONFIGS[case["config"]].model`` (named ``case["model"]`` where
+    given) built with ``case["overrides"]`` (``case["double"]``: in f64) and
+    ``case["state_dict"]``, in eval on this rank's rows of ``case["batch"]``
+    under ``mesh``: the disparity of one forward, the kernels' launches and
+    the halo traffic during it (counts 0 just before), the gathered cost
+    map, ``case.get("timed", 0)`` more forwards' ms and the peak memory.
+    ``mesh`` None: one process on the whole batch (the reference). TF32 is
+    off, as ``chip_smoke.py`` sets it for its reference."""
+    from ecm_torch.configs import CONFIGS
+    from ecm_torch.ops.launches import read_counts, reset_counts
+    from ecm_torch.parallel import halo
+    from ecm_torch.parallel.sharding import batch_sharding, use_mesh
+
+    cfg = CONFIGS[case["config"]].model
+    if "model" in case:
+        cfg = dataclasses.replace(cfg, name=case["model"])
+    model = cfg.build(device=device, **case.get("overrides", {}))
+    if case.get("double"):
+        model.double()
+    model.load_state_dict(case["state_dict"])
+    rows = slice(None) if mesh is None else batch_sharding(mesh, case["batch"]["left"].shape[0])
+    left, right = (case["batch"][k][rows].to(device) for k in ("left", "right"))
+    cuda = device.type == "cuda"
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+    def forward():
+        with torch.inference_mode(), use_mesh(mesh):
+            return model(left, right)[-1]
+
+    forward()  # warm-up: kernel builds, weight packs
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    halo.reset_traffic()
+    disp = forward()
+    if cuda:
+        torch.cuda.synchronize(device)
+    launches, traffic = read_counts(), halo.read_traffic()
+    peak = torch.cuda.max_memory_allocated(device) / 1e9 if cuda else None
+    with torch.inference_mode(), use_mesh(mesh):
+        (cost,) = model.cost_maps(left, right)
+    times = []
+    for _ in range(case.get("timed", 0)):
+        t0 = time.perf_counter()
+        forward()
+        if cuda:
+            torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return dict(disp=_host(disp), cost=_host(cost), launches=launches, traffic=traffic, peak_mem_gb=peak,
+                ms=times, ms_median=statistics.median(times) if times else None)
+
+
+def _gloo_cuda(mesh, device) -> dict:
+    import torch.distributed as dist
+
+    def attempt(fn, want) -> str:
+        try:
+            got = fn()
+        except RuntimeError as e:
+            return "raises: " + (str(e).splitlines() or [""])[0]
+        return "ok" if all(torch.equal(g, w) for g, w in zip(got, want)) else "wrong values"
+
+    t = torch.full((4, 3), float(mesh.rank), device=device)
+
+    def gather():
+        parts = [torch.empty_like(t) for _ in range(mesh.data)]
+        dist.all_gather(parts, t, group=mesh.group)
+        return parts
+
+    def p2p():
+        buf = torch.empty_like(t)
+        ops = [dist.P2POp(dist.isend, t, mesh.rank ^ 1), dist.P2POp(dist.irecv, buf, mesh.rank ^ 1)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return [buf]
+
+    return dict(all_gather=attempt(gather, [torch.full_like(t, float(r)) for r in range(mesh.data)]),
+                p2p=attempt(p2p, [torch.full_like(t, float(mesh.rank ^ 1))]))
+
+
 def run_case(case: dict, mesh, device) -> dict:
     """One case on this rank. ``case["kind"]``:
 
@@ -166,6 +308,20 @@ def run_case(case: dict, mesh, device) -> dict:
       of ``case["dy"]``. Returns y, dx, the weight and bias gradients (this
       rank's share) and the running statistics.
     - ``"dryrun"``: the dry run; rank 0's record (None on the others).
+    - ``"halo"`` (under a ``case["mesh"]`` of ``(data, disp)``, as the next
+      two): ``halo_exchange_d`` (halos 1 and 2), ``conv3d_d_sharded`` with
+      ``case["weight"]`` and ``gather_d`` on this rank's slab of
+      ``case["vol"]``, ``softargmin_d_sharded`` on its slab of each of
+      ``case["costs"]``.
+    - ``"slab"``: one conv form on this rank's slab (:func:`_slab_form`);
+      returns ``{"out": ...}``.
+    - ``"disp_eval"``: the eval forward (:func:`disp_eval`).
+    - ``"gloo_cuda"``: whether the group's backend all-gathers CUDA tensors
+      and sends them point to point (``batch_isend_irecv`` with the rank
+      ``rank ^ 1``): "ok", "wrong values" or the first line of the error.
+    - ``"grid"``: ``make_mesh(*case["shape"])``: the mesh's axes, this
+      rank's place in them, its range of 16 planes and the sum of the ranks'
+      numbers over its data axis; or the ``ValueError``'s message.
     - ``"loop"``: ``train_loop`` over the mesh on ``make_synthetic_pipeline``
       batches (``case["pipeline"]``: PipelineConfig fields, ``h``, ``w``,
       ``max_disp``), to step ``case["steps"][0]`` with a checkpoint every
@@ -184,6 +340,27 @@ def run_case(case: dict, mesh, device) -> dict:
 
     if case["kind"] == "dryrun":
         return _dryrun_rank(mesh, device)
+    if case["kind"] == "halo":
+        return _halo_case(case, mesh, device)
+    if case["kind"] == "slab":
+        from ecm_torch.parallel.sharding import use_mesh
+
+        with torch.no_grad(), use_mesh(mesh):
+            return {"out": _host(_slab_form(case, mesh, device))}
+    if case["kind"] == "disp_eval":
+        return disp_eval(case, mesh, device)
+    if case["kind"] == "gloo_cuda":
+        return _gloo_cuda(mesh, device)
+    if case["kind"] == "grid":
+        from ecm_torch.parallel.sharding import make_mesh
+
+        try:
+            grid = make_mesh(*case["shape"])
+        except ValueError as e:
+            return dict(error=str(e))
+        total = grid.sum(torch.tensor([float(grid.rank)], device=device)).item()
+        return dict(data=grid.data, disp=grid.disp, data_index=grid.data_index, disp_index=grid.disp_index,
+                    disp_ranks=list(grid.disp_ranks), disp_range=grid.disp_range(16), data_sum=total)
     if case["kind"] == "bn":
         bn = (BatchNorm2d if case["ndim"] == 2 else BatchNorm3d)(case["x"].shape[1])
         bn.to(device, case["x"].dtype).load_state_dict(case["state_dict"])
@@ -272,7 +449,15 @@ def main(argv: list[str] | None = None) -> int:
         mesh = make_mesh()
         if args.cases:
             cases = torch.load(args.cases, weights_only=True)
-            results = {c["name"]: run_case(c, mesh, device) for c in cases}
+            # every rank makes each case's mesh (and its subgroups) in the
+            # same order: the cases' order
+            meshes = {(mesh.data, 1): mesh}
+            results = {}
+            for c in cases:
+                shape = tuple(c.get("mesh", (mesh.data, 1)))
+                if shape not in meshes:
+                    meshes[shape] = make_mesh(*shape)
+                results[c["name"]] = run_case(c, meshes[shape], device)
             os.makedirs(args.out, exist_ok=True)
             torch.save(results, os.path.join(args.out, f"rank{mesh.rank}.pt"))
         else:

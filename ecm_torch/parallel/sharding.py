@@ -1,22 +1,29 @@
-"""The data axis of ``ecm_tpu/parallel/sharding.py`` over ``torch.distributed``.
+"""The ``("data", "disp")`` mesh of ``ecm_tpu/parallel/sharding.py`` over
+``torch.distributed``.
 
-``ecm_tpu`` shards the batch over a ``("data", "disp")`` mesh and lets GSPMD
-insert the collectives: the gradient ``psum`` and BatchNorm's global-batch
-statistics. Here one process trains on one card (or on the CPU), every
-process of a group is a row of the ``"data"`` axis, and the collectives are
-explicit:
+``ecm_tpu`` shards the batch over ``"data"`` and the cost volume's disparity
+axis over ``"disp"`` and lets GSPMD insert the collectives. Here one process
+runs on one card (or on the CPU), the processes of a group form a
+``data`` x ``disp`` grid, and the collectives are explicit:
 
-- :class:`Mesh` names the process group, its ``data`` size and ``disp``;
-- :func:`batch_sharding` is this rank's rows of a global batch;
+- :class:`Mesh` names the process group, its two axes and this rank's row
+  (its disp group) and column (its data group);
+- :func:`batch_sharding` is this rank's rows of a global batch (the ranks
+  of one disp group share them);
 - :func:`replicate` broadcasts a module's parameters and buffers from rank 0;
 - under :func:`use_mesh`, BatchNorm in training takes the global batch's
   statistics and the loss and metrics the global batch's masked means
   (``ecm_torch.models.layers``, ``ecm_torch.train``), through
-  :meth:`Mesh.sum`; ``train.steps.make_train_step`` reduces the gradients.
+  :meth:`Mesh.sum` over the data axis; ``train.steps.make_train_step``
+  reduces the gradients;
+- with ``disp > 1`` each rank of a disp group holds its own range of the
+  disparities at every level of the eval forward's 3D stack
+  (``ecm_torch.parallel.halo``).
 
-Intended difference: ``ecm_tpu`` may build its mesh over a subset of its
-devices; here every rank of the group trains, so ``data`` is the group's
-size. The disparity axis (``disp > 1``) is slice 10 of the port and raises.
+Intended differences: ``ecm_tpu`` may build its mesh over a subset of its
+devices; here every rank of the group is in the grid, so ``data * disp`` is
+the group's size. Training with ``disp > 1`` is slice 11 of the port and
+raises :data:`DISP_NOT_PORTED`.
 """
 
 from __future__ import annotations
@@ -32,11 +39,10 @@ import torch.distributed as dist
 import torch.distributed.nn.functional as dist_fn
 from torch import nn
 
-from ecm_torch.data.pipeline import _rank_slice
-
 DISP_NOT_PORTED = (
-    "disparity-axis sharding (mesh disp > 1) is not ported yet: it is slice 10 of the port "
-    "(ROADMAP queue 1, parallel: the halo exchange around each 3D conv)"
+    "training on the disparity axis (mesh disp > 1) is not ported yet: it is slice 11 of the port "
+    "(ROADMAP queue 1: a halo exchange with a backward, BatchNorm statistics over data x disp); "
+    "evaluate and submission run on it (--multihost --mesh-disp N)"
 )
 
 _state = threading.local()
@@ -45,43 +51,84 @@ _state = threading.local()
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A ``("data", "disp")`` mesh over a process group (None: the default
-    group): ``data`` ranks, this one ``rank``; ``disp`` is 1."""
+    group): ``data`` x ``disp`` ranks laid out row-major, rank = data index
+    * disp + disp index (``ecm_tpu`` reshapes its devices so), this one
+    ``rank``. With ``disp > 1``: ``data_group`` is this rank's column, the
+    ranks that split the batch, over which :meth:`sum` reduces;
+    ``disp_group`` its row, the ranks that share its batch rows and split
+    the disparities, whose global ranks are ``disp_ranks`` in order. With
+    ``disp`` 1 both are None: the data axis is ``group`` itself."""
 
     group: dist.ProcessGroup | None
     data: int
     rank: int
     disp: int = 1
+    data_group: dist.ProcessGroup | None = None
+    disp_group: dist.ProcessGroup | None = None
+    disp_ranks: tuple[int, ...] = ()
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.disp
+
+    @property
+    def disp_index(self) -> int:
+        return self.rank % self.disp
+
+    def disp_range(self, n: int) -> tuple[int, int]:
+        """``(start, length)`` of this rank's planes of a disparity extent
+        ``n``: equal slabs in the order of the disp group."""
+        if n % self.disp:
+            raise ValueError(f"a disparity extent of {n} planes does not split into {self.disp} equal slabs")
+        length = n // self.disp
+        return self.disp_index * length, length
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the group, on every rank. Autograd-aware:
-        the gradient of each rank's ``t`` is the sum of the ranks' gradients
-        of the result, so a step through it is the step of one process on
-        the concatenated batch."""
+        """The sum of ``t`` over the data axis (this rank's column), on every
+        rank: the ranks of a disp group hold the same batch rows, so a sum
+        over them would count each row ``disp`` times. Autograd-aware: the
+        gradient of each rank's ``t`` is the sum of the ranks' gradients of
+        the result, so a step through it is the step of one process on the
+        concatenated batch."""
+        group = self.group if self.disp == 1 else self.data_group
         if not t.requires_grad:
             t = t.clone()
-            dist.all_reduce(t, group=self.group)
+            dist.all_reduce(t, group=group)
             return t
-        return dist_fn.all_reduce(t, group=self.group)
+        return dist_fn.all_reduce(t, group=group)
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)
 
 
 def make_mesh(data: int | None = None, disp: int = 1, group: dist.ProcessGroup | None = None) -> Mesh:
-    """The mesh of ``group`` (default: the initialised default group).
-    ``data=None`` is the group's size; another size raises, as does
-    ``disp > 1`` (slice 10)."""
-    if disp > 1:
-        raise NotImplementedError(DISP_NOT_PORTED)
+    """The ``data`` x ``disp`` mesh of ``group`` (default: the initialised
+    default group). ``data=None`` is the group's size over ``disp``; a grid
+    that is not the whole group raises ``ValueError``. With ``disp > 1``
+    every rank creates every row's and every column's subgroup, in the same
+    order (``dist.new_group`` needs all ranks, in one order, or gloo hangs)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised torch.distributed process group")
     world = dist.get_world_size(group)
-    if data is not None and data != world:
+    if disp < 1 or world % disp:
+        raise ValueError(f"mesh disp={disp} with {world} ranks: the disp axis must divide the group")
+    if data is None:
+        data = world // disp
+    if data * disp != world:
         raise ValueError(
-            f"mesh data={data} with {world} ranks: every rank of the group trains, so the data "
-            "axis is the group's size (ecm_tpu may take a subset of its devices; the port does not)"
+            f"mesh data={data} x disp={disp} with {world} ranks: every rank of the group is in the grid, "
+            "so data * disp is the group's size (ecm_tpu may take a subset of its devices; the port does not)"
         )
-    return Mesh(group=group, data=world, rank=dist.get_rank(group))
+    rank = dist.get_rank(group)
+    if disp == 1:
+        return Mesh(group=group, data=world, rank=rank)
+    ranks = [i if group is None else dist.get_global_rank(group, i) for i in range(world)]
+    rows = [ranks[r * disp:(r + 1) * disp] for r in range(data)]
+    cols = [ranks[c::disp] for c in range(disp)]
+    row_groups = [dist.new_group(row) for row in rows]
+    col_groups = [dist.new_group(col) for col in cols]
+    return Mesh(group=group, data=data, rank=rank, disp=disp, data_group=col_groups[rank % disp],
+                disp_group=row_groups[rank // disp], disp_ranks=tuple(rows[rank // disp]))
 
 
 @contextlib.contextmanager
@@ -101,30 +148,43 @@ def active_mesh() -> Mesh | None:
 
 
 def reduction_mesh() -> Mesh | None:
-    """The active mesh when it spans more than one rank, else None: one
-    rank's sums are already the global batch's."""
+    """The active mesh when its data axis spans more than one rank, else
+    None: one rank's sums are already the global batch's."""
     mesh = active_mesh()
     return mesh if mesh is not None and mesh.data > 1 else None
 
 
+def disp_mesh() -> Mesh | None:
+    """The active mesh when it splits the disparities (``disp > 1``), else
+    None."""
+    mesh = active_mesh()
+    return mesh if mesh is not None and mesh.disp > 1 else None
+
+
 def constrain_volume(vol: torch.Tensor) -> torch.Tensor:
-    """Identity. In ``ecm_tpu`` it shards a cost volume's disparity axis
-    over ``disp``; each rank already holds its own batch rows, and the
-    disparity axis stays whole until slice 10 shards it."""
+    """Identity. In ``ecm_tpu`` it is the GSPMD hint that shards a cost
+    volume's disparity axis over ``disp``; here each rank builds only its
+    own range of disparities (``cost_volume(..., d_start=...)``), so the
+    volume is sharded from the start and there is nothing to constrain."""
     return vol
 
 
 def constrain_features(x: torch.Tensor) -> torch.Tensor:
-    """Identity, as :func:`constrain_volume` (``ecm_tpu`` shards the feature
-    maps' width over ``disp``); slice 10 gives it work."""
+    """Identity. In ``ecm_tpu`` it width-shards the 2D feature maps over
+    ``disp`` for speed, which changes nothing that is computed; here every
+    rank of a disp group computes the whole feature extractor (an intended
+    difference; width-sharded features are a later performance item)."""
     return x
 
 
 def batch_sharding(mesh: Mesh, n_global: int) -> slice:
     """This rank's rows of a global batch of ``n_global`` pairs (it must
-    divide by the ranks), as the input pipelines take them."""
-    n, rank, _ = _rank_slice(n_global, mesh.group)
-    return slice(rank * n, (rank + 1) * n)
+    divide by the data axis), as the input pipelines take them; the ranks
+    of one disp group take the same rows."""
+    if n_global % mesh.data:
+        raise ValueError(f"global batch {n_global} not divisible by {mesh.data} ranks")
+    n = n_global // mesh.data
+    return slice(mesh.data_index * n, (mesh.data_index + 1) * n)
 
 
 @torch.no_grad()

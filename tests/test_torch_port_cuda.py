@@ -212,6 +212,37 @@ def test_correlation_kernel(dev, dtype, c):
     assert torch.equal(a.grad, ap.grad) and torch.equal(b.grad, bp.grad)
 
 
+@pytest.mark.parametrize("d_start,planes", [(0, 6), (6, 6), (9, 5), (38, 4), (45, 3)])
+@pytest.mark.parametrize("w", [40, 100])
+@pytest.mark.parametrize("mode,dtype,c", [("concat", torch.bfloat16, 32), ("concat", torch.float32, 3),
+                                          ("correlation", torch.bfloat16, 32), ("correlation", torch.float32, 5)])
+def test_cost_volume_kernels_over_a_range(dev, mode, dtype, c, w, d_start, planes):
+    """Both kernels over planes ``d_start .. d_start + planes`` (a rank's
+    range; past the image's width the planes are zero), one tile of columns
+    and two: against the plain builder over the range (concat bit for bit,
+    correlation as ``test_correlation_kernel``) and equal to the kernel's
+    whole volume's planes; the range's backward is the plain builder's."""
+    g = torch.Generator().manual_seed(11)
+    fl, fr = (torch.randn(2, 3, w, c, generator=g).to(dev, dtype) for _ in range(2))
+    kernel, plain = {"concat": (cost_volume_concat, cost_volume_concat_torch),
+                     "correlation": (cost_volume_correlation, cost_volume_correlation_torch)}[mode]
+    a, b = fl.clone().requires_grad_(), fr.clone().requires_grad_()
+    out = kernel(a, b, planes, d_start)
+    torch.cuda.synchronize()
+    ref = plain(fl, fr, planes, d_start)
+    assert out.shape == ref.shape
+    if mode == "concat":
+        assert torch.equal(out, ref)
+    else:
+        assert _rel(out, ref) <= (1e-2 if dtype == torch.bfloat16 else 1e-5) or ref.abs().max() == 0
+    assert torch.equal(out, kernel(fl, fr, d_start + planes)[:, d_start:])
+    gout = torch.randn(out.shape, generator=g).to(dev, dtype)
+    out.backward(gout)
+    ap, bp = fl.clone().requires_grad_(), fr.clone().requires_grad_()
+    plain(ap, bp, planes, d_start).backward(gout)
+    assert torch.equal(a.grad, ap.grad) and torch.equal(b.grad, bp.grad)
+
+
 # the tensor-core conv core (csrc/conv_wgmma.cuh) at ragged shapes: W not a
 # multiple of the 16-wide tile, D = 1, odd H, B = 2; (mode, [B, D, H, W], Cin, Cout)
 RAGGED = {

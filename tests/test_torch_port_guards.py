@@ -56,9 +56,11 @@ def test_build_model_without_gpu_raises(monkeypatch):
 
 
 def test_unported_paths_raise(monkeypatch):
-    """What is still to port raises: the disparity mesh (``--mesh-disp``
-    above 1, slice 10 of ROADMAP queue 1, parallel). What earlier slices
-    ported runs: the training forward of both models (3 and 1 predictions),
+    """What is still to port raises: training on the disparity mesh
+    (``--mesh-disp`` above 1, slice 11 of ROADMAP queue 1, parallel); the
+    eval mesh of slice 10 needs ``--multihost`` with that many ranks. What
+    earlier slices ported runs: the training forward of both models (3 and
+    1 predictions),
     the correlation volume with ``use_pallas=True``, and the trainer with
     checkpoints; ``--multihost`` (the data axis) no longer raises
     ``NotImplementedError``: with no GPU and no ``--device`` it refuses the
@@ -77,9 +79,9 @@ def test_unported_paths_raise(monkeypatch):
         assert m(*images)[0].shape == (1, 32, 48)
     for argv in (["--mesh-disp", "2"], ["--config", "middlebury_disp_sharded"]):
         cfg = common.resolve_config(common.base_parser("").parse_args(argv), "kitti_infer")
-        with pytest.raises(NotImplementedError, match="slice 10 .*parallel"):
+        with pytest.raises(ValueError, match="needs --multihost with .* ranks, have 1"):
             common.eval_mesh(cfg)
-        with pytest.raises(NotImplementedError, match="slice 10 .*parallel"):
+        with pytest.raises(NotImplementedError, match="slice 11 .*ROADMAP queue 1"):
             common.make_mesh_from(cfg)
     assert common.make_mesh_from(CONFIGS["sceneflow_single"]) is None
     assert common.eval_mesh(CONFIGS["kitti_infer"]) is None

@@ -473,9 +473,10 @@ def test_dryrun_two_ranks_matches_one_process(group):
 
 
 def test_make_mesh_needs_a_group_and_takes_every_rank():
-    """Without a process group ``make_mesh`` raises, ``disp > 1`` names
-    slice 10, and one process's mesh is None in the CLIs."""
+    """Without a process group ``make_mesh`` raises, on either axis (the
+    grids of four ranks, and a grid that is not the group, are held in
+    ``test_torch_port_disp.py``)."""
     with pytest.raises(RuntimeError, match="process group"):
         make_mesh()
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    with pytest.raises(RuntimeError, match="process group"):
         make_mesh(disp=2)
