@@ -114,7 +114,34 @@
    peak memory and halo and gather traffic a forward, and the phase's wall
    time. Four ranks on one card measure correctness and memory per rank,
    not scaling.
-8. Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+8. Trains on slice 11's disparity axis on the one card: four ranks of
+   ``dryrun.launch`` share cuda:0 over gloo as a ``(data 2, disp 2)`` grid,
+   each with its 6 pairs and half of the disparities at every level:
+   - ``gband_conv_s1`` against its plain version at a rank's halo-padded
+     slab, 6 x 25 planes (24 + one from its neighbour) and 6 x 26 (an
+     interior rank's), forward and input gradient at 2e-2, and the time of
+     the copy that cropping such a slab to 24 planes makes;
+   - one ``sceneflow_dp`` step (the parallel phase's weights and 12 pairs)
+     against the parallel phase's one-process step: the logged loss at rel
+     <= 2e-2, the weight gradients of the seven ``gband_conv_s1`` sites and
+     of a 3D BatchNorm at cosine >= 0.99 and a norm ratio within [0.97,
+     1.03] (a missing sum over disp scales them by 1/2, which a cosine does
+     not see), every running statistic at rel <= 2e-2, and on each rank 7 +
+     7 ``gband_conv_s1`` launches and no other kernel (0 just before the
+     step); each rank's ms a step (3 timed), peak memory, and halo (forward
+     and backward apart) and gather traffic. The first feature conv's bf16
+     gradient is printed, not gated: one process's bf16 step against its
+     f32 step, also printed, shows it mostly rounding noise; so the same
+     step in f32 on 4 of the pairs (2 a data row) holds all nine weight
+     gradients, the feature conv's included, at those limits, with the
+     loss and the statistics;
+   - ``python -m torch.distributed.run --nproc_per_node 2 -m
+     ecm_torch.cli.train --multihost --mesh-disp 2 --dist-backend gloo
+     --device cuda:0`` for 2 steps of ``sceneflow_dp`` on the cli phase's
+     SceneFlow-layout tree (a finite loss, one checkpoint, rank 0 alone
+     printing the mesh), whose checkpoint ``evaluate`` then restores in
+     this process.
+9. Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits nonzero without the last line.
@@ -820,6 +847,7 @@ GBAND_SITES = (
     "aggregation.dres0_1", "aggregation.dres0_2", "aggregation.dres1_1", "aggregation.dres1_2",
     "aggregation.classif1.conv1", "aggregation.classif2.conv1", "aggregation.classif3.conv1",
 )
+GBAND_WEIGHTS = tuple(f"{s}.conv.weight" for s in GBAND_SITES)
 
 
 def train_batch(seed: int) -> dict:
@@ -1221,6 +1249,9 @@ PAR_GRAD_COSINE = 0.99  # the seven gband_conv_s1 sites' weight gradients
 PAR_BN_REL_TOL = 2e-2  # each running statistic, max|diff| / max|ref|
 PAR_TIMED_STEPS = 3
 PAR_CLI_STEPS = 2
+# the gband sites' weight gradients, the first feature conv's (the 2D nets
+# reach the loss through every slab) and a 3D BatchNorm weight's under remat
+PAR_GRADS = (*GBAND_WEIGHTS, "feature.firstconv1.conv.weight", "aggregation.hourglass1.conv1.bn.weight")
 
 
 def par_batch() -> dict:
@@ -1235,16 +1266,17 @@ def par_batch() -> dict:
     return batch
 
 
-def check_gband_rank_shape(gen) -> float:
+def check_gband_rank_shape(gen, planes: int = D4) -> float:
     """``gband_conv_s1`` against its plain version at a rank's shape of the
-    parallel path (6 pairs), both forward forms and both input gradients;
-    the largest max|diff| / max|ref|."""
+    parallel path (6 pairs, ``planes`` disparity planes: all 48 on the data
+    axis, a halo-padded slab on the disparity axis), both forward forms and
+    both input gradients; the largest max|diff| / max|ref|."""
     b = CONFIGS[PAR_CONFIG].data.global_batch // PAR_RANKS
     worst = 0.0
     for cin in (2 * C, C):
-        x = _rnd(gen, b, D4, TH // 4, TW // 4, cin).bfloat16()
+        x = _rnd(gen, b, planes, TH // 4, TW // 4, cin).bfloat16()
         wt = _rnd(gen, C, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
-        dy = _rnd(gen, b, D4, TH // 4, TW // 4, C).bfloat16()
+        dy = _rnd(gen, b, planes, TH // 4, TW // 4, C).bfloat16()
         with torch.no_grad():
             pairs_ = ((gbk.gband_conv_s1(x, wt), gbk.gband_conv_s1_torch(x, wt)),
                       (gbk.gband_conv_s1_input_grad(dy, wt.bfloat16()),
@@ -1252,21 +1284,26 @@ def check_gband_rank_shape(gen) -> float:
         for out, ref in pairs_:
             worst = max(worst, ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item())
     if not worst <= PAIR_REL_TOL:
-        raise AssertionError(f"gband_conv_s1 at B={b}: rel err {worst} > {PAIR_REL_TOL}")
+        raise AssertionError(f"gband_conv_s1 at B={b}, {planes} planes: rel err {worst} > {PAIR_REL_TOL}")
     return worst
 
 
-def par_reference(batch: dict) -> tuple[dict, dict]:
+def par_reference(batch: dict, start: dict | None = None, dtype: torch.dtype | None = None) -> tuple[dict, dict]:
     """One process's ``sceneflow_dp`` step on the global batch (the heads'
-    conv2 scaled by 1e-3, as in ``compare_train_paths``). Returns the start
-    weights (on the host) and the step's loss, gband weight gradients,
-    running statistics, launches, ms a step and peak memory."""
+    conv2 scaled by 1e-3, as in ``compare_train_paths``; or from the
+    weights ``start``), in the preset's bf16 or in ``dtype``. Returns the
+    start weights (on the host) and the step's loss, the weight gradients
+    of ``PAR_GRADS``, running statistics, launches, ms a step and peak
+    memory."""
     cfg = CONFIGS[PAR_CONFIG]
-    model = cfg.model.build(generator=torch.Generator().manual_seed(0))
+    model = cfg.model.build(generator=torch.Generator().manual_seed(0), **({} if dtype is None else dict(dtype=dtype)))
     if model.resolve_layout(torch.device("cuda")) != "grouped" or not model.remat:
         raise AssertionError(f"{PAR_CONFIG} does not resolve to the grouped layout with remat on CUDA")
-    scale_heads(model, 1e-3)
-    start = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    if start is None:
+        scale_heads(model, 1e-3)
+        start = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    else:
+        model.load_state_dict(start)
     state = create_train_state(model, make_optimizer(cfg.train.lr))
     step = make_train_step(model, cfg.model.max_disp)
     cuda_batch = to_device(batch, torch.device("cuda"))
@@ -1279,7 +1316,7 @@ def par_reference(batch: dict) -> tuple[dict, dict]:
     params = dict(model.named_parameters())
     ref = dict(
         loss=metrics["loss"].item(), valid_px=metrics["valid_px"].item(), launches=launches,
-        grads={s: params[f"{s}.conv.weight"].grad.detach().float().cpu().clone() for s in GBAND_SITES},
+        grads={n: params[n].grad.detach().float().cpu().clone() for n in PAR_GRADS},
         stats={k: v.detach().float().cpu().clone() for k, v in model.state_dict().items()
                if k.endswith(("running_mean", "running_var"))},
     )
@@ -1290,33 +1327,39 @@ def par_reference(batch: dict) -> tuple[dict, dict]:
     return start, ref
 
 
-def compare_ranks(ref: dict, ranks: list[dict]) -> dict:
+def compare_ranks(ref: dict, ranks: list[dict], phase: str = "parallel", grads=GBAND_WEIGHTS,
+                  norm_band: tuple[float, float] | None = None) -> dict:
     """Each rank's step against the one-process reference: logged loss,
-    the seven gband weight gradients (cosine), every running statistic,
-    7 + 7 gband_conv_s1 launches and no other kernel."""
+    the weight gradients ``grads`` (cosine, and with ``norm_band`` the ratio
+    of the norms within it; both are reported for every gradient the rank
+    returned), every running statistic, 7 + 7 gband_conv_s1 launches and no
+    other kernel."""
     want = {k: 0 for k in COUNTERS}
     want.update(gband_conv_s1=7, gband_conv_s1_input_grad=7)
     out = []
     for r, got in enumerate(ranks):
         if got["launches"] != want:
-            raise AssertionError(f"parallel rank {r}: launches {got['launches']}, expected {want}")
+            raise AssertionError(f"{phase} rank {r}: launches {got['launches']}, expected {want}")
         loss_rel = abs(got["metrics"]["loss"] - ref["loss"]) / abs(ref["loss"])
-        cos = {s: F.cosine_similarity(got["grads"][f"{s}.conv.weight"].float().flatten(),
-                                      ref["grads"][s].flatten(), dim=0).item() for s in GBAND_SITES}
+        mine = {n: g.float().flatten() for n, g in got["grads"].items()}
+        cos = {n: F.cosine_similarity(g, ref["grads"][n].flatten(), dim=0).item() for n, g in mine.items()}
+        norm = {n: (g.norm() / ref["grads"][n].norm()).item() for n, g in mine.items()}
         bn_rel = max(((got["state"][k].float() - v).abs().max() / v.abs().max()).item()
                      for k, v in ref["stats"].items())
-        out.append(dict(rank=r, loss=got["metrics"]["loss"], loss_rel=loss_rel, grad_cosine=cos, bn_rel=bn_rel,
-                        valid_px=got["metrics"]["valid_px"], launches=got["launches"],
-                        step_ms=got["step_ms"], step_ms_median=got["step_ms_median"],
+        out.append(dict(rank=r, loss=got["metrics"]["loss"], loss_rel=loss_rel, grad_cosine=cos, grad_norm_ratio=norm,
+                        bn_rel=bn_rel, valid_px=got["metrics"]["valid_px"], launches=got["launches"],
+                        traffic=got["traffic"], step_ms=got["step_ms"], step_ms_median=got["step_ms_median"],
                         peak_mem_gb=got["peak_mem_gb"]))
         if not loss_rel <= PAR_LOSS_REL_TOL:
-            raise AssertionError(f"parallel rank {r}: loss {got['metrics']['loss']} vs {ref['loss']}: rel {loss_rel}")
-        if not min(cos.values()) >= PAR_GRAD_COSINE:
-            raise AssertionError(f"parallel rank {r}: gband weight-gradient cosine {cos} below {PAR_GRAD_COSINE}")
+            raise AssertionError(f"{phase} rank {r}: loss {got['metrics']['loss']} vs {ref['loss']}: rel {loss_rel}")
+        if not min(cos[n] for n in grads) >= PAR_GRAD_COSINE:
+            raise AssertionError(f"{phase} rank {r}: weight-gradient cosine {cos} below {PAR_GRAD_COSINE}")
+        if norm_band is not None and not all(norm_band[0] <= norm[n] <= norm_band[1] for n in grads):
+            raise AssertionError(f"{phase} rank {r}: weight-gradient norm ratios {norm} outside {norm_band}")
         if not bn_rel <= PAR_BN_REL_TOL:
-            raise AssertionError(f"parallel rank {r}: BatchNorm statistics rel {bn_rel} > {PAR_BN_REL_TOL}")
+            raise AssertionError(f"{phase} rank {r}: BatchNorm statistics rel {bn_rel} > {PAR_BN_REL_TOL}")
         if got["metrics"]["valid_px"] != ref["valid_px"]:
-            raise AssertionError(f"parallel rank {r}: valid_px {got['metrics']['valid_px']} vs {ref['valid_px']}")
+            raise AssertionError(f"{phase} rank {r}: valid_px {got['metrics']['valid_px']} vs {ref['valid_px']}")
     return dict(ranks=out)
 
 
@@ -1370,9 +1413,11 @@ def nccl_world_one(root: Path, sf: str, kt: str) -> dict:
     return dict(train_wall_s=wall, train_logged=logged, evaluate=dict(evaluated, metrics=metrics))
 
 
-def parallel_phase(card: str, gen, sf: str, kt: str) -> dict:
+def parallel_phase(card: str, gen, sf: str, kt: str) -> tuple[dict, dict, dict, dict]:
     """Slice 9's path, the data axis, on the one card (see the module's
-    docstring, item 6), the NCCL train CLI on the cli phase's trees."""
+    docstring, item 6), the NCCL train CLI on the cli phase's trees.
+    Returns the phase's record, and the global batch, the start weights and
+    the one-process reference, which the disp_train phase reuses."""
     t_phase = time.perf_counter()
     dry = dryrun.dryrun_multichip(PAR_RANKS, device="cuda:0", backend="gloo", timeout=PAR_TIMEOUT)
     dry["wall_s"] = time.perf_counter() - t_phase
@@ -1390,9 +1435,8 @@ def parallel_phase(card: str, gen, sf: str, kt: str) -> dict:
         root = Path(tmp)
         torch.save([dict(name=PAR_CONFIG, kind="step", config=PAR_CONFIG, state_dict=start,
                          batch={k: torch.from_numpy(v) for k, v in batch.items()},
-                         lr=CONFIGS[PAR_CONFIG].train.lr, grads=[f"{s}.conv.weight" for s in GBAND_SITES],
+                         lr=CONFIGS[PAR_CONFIG].train.lr, grads=list(GBAND_WEIGHTS),
                          timed_steps=PAR_TIMED_STEPS)], root / "cases.pt")
-        del start
         t0 = time.perf_counter()
         dryrun.launch(["--cases", str(root / "cases.pt"), "--out", str(root), "--device", "cuda:0",
                        "--backend", "gloo", "--timeout", str(PAR_TIMEOUT)], PAR_RANKS, PAR_TIMEOUT)
@@ -1408,9 +1452,10 @@ def parallel_phase(card: str, gen, sf: str, kt: str) -> dict:
     wall = time.perf_counter() - t_phase
     log(f"phase parallel: one process on {len(batch['left'])} pairs {statistics.median(ref['step_ms']):.2f} ms a "
         f"step; NCCL world-size-1 train CLI {nccl['train_wall_s']:.1f} s; wall {wall:.1f} s [{card}]")
-    return dict(card=card, dryrun=dry, gband_rank_shape_rel=gband_rel, reference={
+    record = dict(card=card, dryrun=dry, gband_rank_shape_rel=gband_rel, reference={
         k: v for k, v in ref.items() if k not in ("grads", "stats")}, group_wall_s=group_wall,
         launches=compared["ranks"][0]["launches"], nccl=nccl, wall_s=wall, **compared)
+    return record, batch, start, ref
 
 
 # the disp phase (slice 10): BASELINE config 4, the disparity axis, on the one
@@ -1650,6 +1695,137 @@ def disp_phase(card: str) -> dict:
                 group_wall_s=group_wall, wall_s=wall)
 
 
+# the disp_train phase (slice 11): sceneflow_dp's step on a (data 2, disp 2)
+# grid of four ranks that share cuda:0 over gloo, held against the parallel
+# phase's one-process step on the same 12 pairs from the same weights
+DTRAIN_MESH = (2, 2)
+DTRAIN_RANKS = DTRAIN_MESH[0] * DTRAIN_MESH[1]
+DTRAIN_NORM_BAND = (0.97, 1.03)  # each gated weight gradient's norm over one process's
+# in bf16 the early feature convs' gradients are mostly rounding noise, in
+# one process too (the phase prints one process's bf16 step against its f32
+# step on the same pairs): the bf16 step gates the gband sites and a 3D
+# BatchNorm and prints the rest; an f32 step on 4 of the 12 pairs (2 a data
+# row) gates every gradient of PAR_GRADS
+DTRAIN_BF16_GRADS = (*GBAND_WEIGHTS, "aggregation.hourglass1.conv1.bn.weight")
+DTRAIN_F32_ROWS = [0, 1, 6, 7]
+# a rank's halo-padded slab of the 48 planes at disp 2 (24 + one plane from
+# its one neighbour), and an interior rank's of a longer grid (24 + 2)
+DTRAIN_SLAB_PLANES = (D4 // DTRAIN_MESH[1] + 1, D4 // DTRAIN_MESH[1] + 2)
+DTRAIN_CLI_DISP = 2
+
+
+def crop_copy_ms(gen) -> float:
+    """ms (CUDA events, median of 10) of the copy ``halo._crop`` makes of a
+    ``gband_conv_s1`` output slab at a rank's shape, 6 x 25 planes cropped
+    to 24: at batch > 1 the narrowed planes are not contiguous."""
+    b = CONFIGS[PAR_CONFIG].data.global_batch // PAR_RANKS
+    y = _rnd(gen, b, DTRAIN_SLAB_PLANES[0], TH // 4, TW // 4, C).bfloat16()
+    return time_ms(lambda: y.narrow(1, 0, D4 // DTRAIN_MESH[1]).clone(memory_format=torch.contiguous_format))
+
+
+def disp_train_cli(sf: str, kt: str, root: Path) -> dict:
+    """``train --multihost --mesh-disp 2 --dist-backend gloo --device
+    cuda:0`` under ``torch.distributed.run`` (two ranks on the one card, a
+    ``(1, 2)`` grid) for ``PAR_CLI_STEPS`` steps of ``sceneflow_dp`` on the
+    cli phase's SceneFlow-layout tree ``sf``: rank 0 alone prints the mesh
+    and writes one checkpoint, the logged loss is finite; then the
+    single-process ``evaluate`` restores it on the KITTI validation pairs of
+    ``kt`` (launches 4/3/3/1/1 a pair)."""
+    ck = root / "ck_disp_train"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(DTRAIN_CLI_DISP), "--nnodes", "1",
+           "--master_addr", "localhost", "--master_port", str(dryrun.free_port()),
+           "-m", "ecm_torch.cli.train", "--multihost", "--mesh-disp", str(DTRAIN_CLI_DISP), "--dist-backend", "gloo",
+           "--device", "cuda:0", "--dist-timeout", str(PAR_TIMEOUT), "--config", PAR_CONFIG, "--datapath", sf,
+           "--steps", str(PAR_CLI_STEPS), "--savemodel", str(ck)]
+    log(f"  disp_train: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    run = run_session(cmd, PAR_TIMEOUT)
+    wall = time.perf_counter() - t0
+    log(f"  disp_train CLI: exit {run.returncode}; {run.stdout.strip()[-600:]}")
+    if run.returncode != 0:
+        raise AssertionError(f"train --mesh-disp {DTRAIN_CLI_DISP} exited {run.returncode}: {run.stderr[-3000:]}")
+    for text in (f"multihost: {DTRAIN_CLI_DISP} ranks, backend gloo, rank 0 on cuda:0",
+                 f"training mesh: data 1, disp {DTRAIN_CLI_DISP}", f"done at step {PAR_CLI_STEPS}"):
+        if run.stdout.count(text) != 1:
+            raise AssertionError(f"train --mesh-disp {DTRAIN_CLI_DISP}: rank 0 alone must print {text!r}")
+    if ckpt_lib.make_manager(str(ck)).all_steps() != [PAR_CLI_STEPS]:
+        raise AssertionError(f"train --mesh-disp checkpoints {ckpt_lib.make_manager(str(ck)).all_steps()}")
+    logged = json.loads(Path(ck, "metrics.jsonl").read_text().splitlines()[-1])
+    if not math.isfinite(logged["loss"]):
+        raise AssertionError(f"train --mesh-disp {DTRAIN_CLI_DISP}: logged loss {logged['loss']}")
+    _, val = kitti.list_kitti(kt)
+    evaluated, out = drive("evaluate (the disp-trained checkpoint)", cli_evaluate, [
+        "--dataset", "kitti2015", "--datapath", kt, "--loadmodel", str(ck)], _pairs(len(val)))
+    if f"loaded checkpoint step {PAR_CLI_STEPS}" not in out:
+        raise AssertionError("evaluate did not restore the disp-trained checkpoint")
+    metrics = json.loads(out.strip().splitlines()[-1])
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"evaluate metrics {metrics}")
+    return dict(train_wall_s=wall, train_logged=logged, evaluate=dict(evaluated, metrics=metrics))
+
+
+def disp_train_phase(card: str, gen, batch: dict, start: dict, ref: dict, sf: str, kt: str) -> dict:
+    """Slice 11's path, training on the disparity axis (see the module's
+    docstring, item 8)."""
+    t_phase = time.perf_counter()
+    slab_rel = {planes: check_gband_rank_shape(gen, planes) for planes in DTRAIN_SLAB_PLANES}
+    crop_ms = crop_copy_ms(gen)
+    log(f"phase disp_train: gband_conv_s1 at 6 pairs x {list(slab_rel)} planes against its plain version, "
+        f"forward and input gradient: rel {slab_rel} (<= {PAIR_REL_TOL}); a slab crop's copy {crop_ms:.4f} ms [{card}]")
+    small = {k: v[DTRAIN_F32_ROWS] for k, v in batch.items()}
+    _, ref32 = par_reference(small, start, torch.float32)
+    _, ref16 = par_reference(small, start)
+    torch.cuda.empty_cache()
+    floor = {n: (F.cosine_similarity(g.flatten(), ref32["grads"][n].flatten(), dim=0).item(),
+                 (g.norm() / ref32["grads"][n].norm()).item()) for n, g in ref16["grads"].items()}
+    log(f"phase disp_train: one process, bf16 against f32 on {len(DTRAIN_F32_ROWS)} pairs, weight gradients (cosine, "
+        f"norm ratio): {floor} [{card}]")
+    lr = CONFIGS[PAR_CONFIG].train.lr
+    with tempfile.TemporaryDirectory(prefix="ecm_disp_train_") as tmp:
+        root = Path(tmp)
+        torch.save([dict(name="bf16", kind="step", mesh=DTRAIN_MESH, config=PAR_CONFIG, state_dict=start,
+                         batch={k: torch.from_numpy(v) for k, v in batch.items()}, lr=lr, grads=list(PAR_GRADS),
+                         timed_steps=PAR_TIMED_STEPS),
+                    dict(name="f32", kind="step", mesh=DTRAIN_MESH, config=PAR_CONFIG, state_dict=start,
+                         overrides=dict(dtype=torch.float32), batch={k: torch.from_numpy(v) for k, v in small.items()},
+                         lr=lr, grads=list(PAR_GRADS))], root / "cases.pt")
+        t0 = time.perf_counter()
+        dryrun.launch(["--cases", str(root / "cases.pt"), "--out", str(root), "--device", "cuda:0",
+                       "--backend", "gloo", "--timeout", str(PAR_TIMEOUT)], DTRAIN_RANKS, PAR_TIMEOUT)
+        group_wall = time.perf_counter() - t0
+        results = [torch.load(root / f"rank{r}.pt", weights_only=True) for r in range(DTRAIN_RANKS)]
+        ranks = [res["bf16"] for res in results]
+        compared = compare_ranks(ref, ranks, "disp_train bf16", DTRAIN_BF16_GRADS, DTRAIN_NORM_BAND)
+        f32 = compare_ranks(ref32, [res["f32"] for res in results], "disp_train f32", PAR_GRADS, DTRAIN_NORM_BAND)
+        cli = disp_train_cli(sf, kt, root)
+    for r, r32, got in zip(compared["ranks"], f32["ranks"], ranks):
+        t = got["traffic"]
+        log(f"phase disp_train: rank {r['rank']} of {DTRAIN_RANKS}, data {DTRAIN_MESH[0]} x disp {DTRAIN_MESH[1]} "
+            f"(four ranks sharing one card over gloo; not a scaling number): bf16 on 12 pairs: loss {r['loss']} (rel "
+            f"{r['loss_rel']:.2e}), weight gradients (cosine, norm ratio) {_grad_summary(r)}, BatchNorm statistics "
+            f"rel {r['bn_rel']:.2e}; f32 on 4 pairs: loss rel {r32['loss_rel']:.2e}, weight gradients "
+            f"{_grad_summary(r32)}, BatchNorm statistics rel {r32['bn_rel']:.2e}; bf16 step {r['step_ms_median']:.2f} "
+            f"ms (runs {r['step_ms']}), peak "
+            f"{r['peak_mem_gb']:.2f} GB (one process on 12 pairs {ref['peak_mem_gb']:.2f} GB); a step's traffic: "
+            f"halo forward {t['halo_messages']} messages {t['halo_bytes']} B (with the remat recomputation), halo "
+            f"backward {t['halo_grad_messages']} messages {t['halo_grad_bytes']} B, gather {t['gather_messages']} "
+            f"messages {t['gather_bytes']} B (its backward sends nothing), slab crop copies {t['copies']}, "
+            f"gband_conv_s1 copies {got['gband_copies']} [{card}]")
+    wall = time.perf_counter() - t_phase
+    log(f"phase disp_train: one process on {len(batch['left'])} pairs {statistics.median(ref['step_ms']):.2f} ms a "
+        f"step; ranks {group_wall:.1f} s; CLI {cli['train_wall_s']:.1f} s; wall {wall:.1f} s [{card}]")
+    return dict(card=card, mesh=DTRAIN_MESH, gband_slab_rel=slab_rel, crop_copy_ms=crop_ms,
+                launches=ranks[0]["launches"], gband_copies=[got["gband_copies"] for got in ranks], cli=cli,
+                f32=dict(reference={k: v for k, v in ref32.items() if k not in ("grads", "stats")}, **f32),
+                bf16_against_f32_one_process=floor,
+                group_wall_s=group_wall, wall_s=wall, **compared)
+
+
+def _grad_summary(r: dict) -> str:
+    return ", ".join(f"{n.replace('aggregation.', '').replace('.weight', '')} ({c:.5f}, {r['grad_norm_ratio'][n]:.4f})"
+                     for n, c in r["grad_cosine"].items())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1725,15 +1901,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="ecm_cli_") as tmp:
         cli = cli_phase(card, Path(tmp))
         log("phase cli [" + card + "]: " + json.dumps(cli))
-        par = parallel_phase(card, gen, *cli["trees"])
-    log("phase parallel [" + card + "]: " + json.dumps(par))
-    disp = disp_phase(card)
-    log("phase disp [" + card + "]: " + json.dumps(disp))
+        par, par_global, par_start, par_ref = parallel_phase(card, gen, *cli["trees"])
+        log("phase parallel [" + card + "]: " + json.dumps(par))
+        disp = disp_phase(card)
+        log("phase disp [" + card + "]: " + json.dumps(disp))
+        dtrain = disp_train_phase(card, gen, par_global, par_start, par_ref, *cli["trees"])
+        log("phase disp_train [" + card + "]: " + json.dumps(dtrain))
     paths.update(cli["runs"])
     paths["parallel_" + PAR_CONFIG] = par
     paths["parallel_nccl_evaluate"] = par["nccl"]["evaluate"]
     paths["disp_" + DISP_CONFIG + "_rank0"] = disp
     paths["disp_evaluate_one_process"] = disp["cli"]["one_process_cli"]
+    paths["disp_train_" + PAR_CONFIG + "_rank0"] = dtrain
+    paths["disp_train_evaluate"] = dtrain["cli"]["evaluate"]
     # launches: each kernel's count on its main path (the grouped serving
     # path runs the six slice-1/2 kernels, basic_correlation the correlation
     # kernel, the train path gband_conv_s1: forwards + input gradients)

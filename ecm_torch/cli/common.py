@@ -17,12 +17,13 @@ Intended differences from the JAX package:
   take a subset of its devices). Only rank 0 prints and writes files;
   ``evaluate``, ``submission`` and ``test_img`` take the whole set on every
   rank, as ``ecm_tpu``'s do;
-- ``evaluate`` and ``submission`` with ``--mesh-disp N`` above 1 (the
-  ``middlebury_disp_sharded`` preset) need ``--multihost`` with N ranks and
-  shard the disparities over them (``ecm_torch.parallel.halo``): every rank
-  reads the same pair, rank 0 prints and writes. With ``--dist-backend
-  gloo`` ranks may share one card. Training with ``--mesh-disp`` above 1 is
-  slice 11 and raises ``NotImplementedError``;
+- ``--mesh-disp N`` above 1 shards the disparities over N ranks
+  (``ecm_torch.parallel.halo``); with ``--dist-backend gloo`` ranks may
+  share one card. ``evaluate`` and ``submission`` (the
+  ``middlebury_disp_sharded`` preset) need ``--multihost`` with N ranks,
+  every rank reads the same pair, rank 0 prints and writes. ``train`` and
+  ``finetune`` run on a ``(data, disp)`` grid of the ranks of
+  ``--multihost``: the ranks of one disp group draw the same pairs;
 - no compile-cache settings: the kernel build cache in ``build/`` is their
   counterpart.
 """
@@ -36,7 +37,7 @@ import torch
 import torch.distributed as dist
 
 from ecm_torch.configs import CONFIGS, ExperimentConfig
-from ecm_torch.parallel.sharding import DISP_NOT_PORTED, init_from_env, is_main_process, make_mesh
+from ecm_torch.parallel.sharding import grid_shape, init_from_env, is_main_process, make_mesh
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -74,7 +75,7 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--mesh-disp", type=int, default=None,
-        help="disp-axis mesh size: evaluate/submission with --multihost on that many ranks (training: slice 11)",
+        help="disp-axis mesh size: with --multihost, the disparities split over that many ranks",
     )
     p.add_argument("--multihost", action="store_true", help="join torch.distributed.run's process group")
     p.add_argument(
@@ -151,15 +152,18 @@ def say(*a) -> None:
 
 
 def make_mesh_from(cfg: ExperimentConfig):
-    """The training mesh: None for one process (the JAX package's answer
-    on one device); under ``--multihost`` the data axis over every rank. A
-    disparity mesh raises ``NotImplementedError``: training on that axis is
-    slice 11."""
-    if cfg.train.mesh_disp > 1:
-        raise NotImplementedError(f"--mesh-disp {cfg.train.mesh_disp}: {DISP_NOT_PORTED}")
+    """The training mesh (``ecm_tpu/cli/common.py:110-120``): None for one
+    process with ``mesh_disp <= 1`` (the JAX package's answer on one
+    device); else ``make_mesh(data=mesh_data, disp=mesh_disp)`` over the
+    ranks of ``--multihost``, which prints it. A grid that is not the whole
+    group raises ``ValueError``, with one process too."""
+    disp = max(cfg.train.mesh_disp, 1)
     if not dist.is_initialized():
+        grid_shape(1, cfg.train.mesh_data, disp)
         return None
-    return make_mesh(data=cfg.train.mesh_data)
+    mesh = make_mesh(data=cfg.train.mesh_data, disp=disp)
+    say(f"training mesh: data {mesh.data}, disp {mesh.disp}")
+    return mesh
 
 
 def eval_mesh(cfg: ExperimentConfig):
@@ -177,8 +181,10 @@ def eval_mesh(cfg: ExperimentConfig):
     return make_mesh(data=1, disp=disp)
 
 
-def make_data_iter(cfg: ExperimentConfig):
-    """The train-data iterator of ``cfg.data.dataset``.
+def make_data_iter(cfg: ExperimentConfig, mesh=None):
+    """The train-data iterator of ``cfg.data.dataset``: this rank's rows of
+    each global batch, by ``mesh``'s data axis (the ranks of one disp group
+    draw the same pairs and crops).
 
     Returns ``(iterator, n_samples)``; ``n_samples`` is None for unbounded
     synthetic streams (used by ``steps_from_epochs``).
@@ -200,6 +206,7 @@ def make_data_iter(cfg: ExperimentConfig):
             w=w,
             max_disp=min(cfg.model.max_disp * 0.8, 40.0),
             distinct=cfg.data.synthetic_distinct,
+            mesh=mesh,
         )
         return it, None
     from ecm_torch.data.pipeline import make_train_pipeline
@@ -210,7 +217,7 @@ def make_data_iter(cfg: ExperimentConfig):
         train, _ = list_sceneflow(cfg.data.datapath)
         if not train:
             raise FileNotFoundError(f"no SceneFlow samples under {cfg.data.datapath!r}")
-        return make_train_pipeline(train, load_sample, pcfg), len(train)
+        return make_train_pipeline(train, load_sample, pcfg, mesh), len(train)
     if ds in ("kitti2015", "kitti2012"):
         from ecm_torch.data.kitti import list_kitti, load_sample
 
@@ -218,14 +225,14 @@ def make_data_iter(cfg: ExperimentConfig):
         train, _ = list_kitti(cfg.data.datapath, year=year)
         if not train:
             raise FileNotFoundError(f"no KITTI samples under {cfg.data.datapath!r}")
-        return make_train_pipeline(train, load_sample, pcfg), len(train)
+        return make_train_pipeline(train, load_sample, pcfg, mesh), len(train)
     if ds == "middlebury":
         from ecm_torch.data.middlebury import list_middlebury, load_sample
 
         train, _ = list_middlebury(cfg.data.datapath)
         if not train:
             raise FileNotFoundError(f"no Middlebury scenes under {cfg.data.datapath!r}")
-        return make_train_pipeline(train, load_sample, pcfg), len(train)
+        return make_train_pipeline(train, load_sample, pcfg, mesh), len(train)
     raise ValueError(f"unknown dataset {ds!r}")
 
 

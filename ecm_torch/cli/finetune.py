@@ -74,7 +74,7 @@ def main(argv: list[str] | None = None) -> None:
             k: float(np.mean([m[k] for m in ms])) for k in ("epe", "d1_all", "px3")
         }
 
-    data_iter, n_samples = make_data_iter(cfg)
+    data_iter, n_samples = make_data_iter(cfg, mesh)
     num_steps = steps_from_epochs(cfg, n_samples)
     state = train_loop(
         state,

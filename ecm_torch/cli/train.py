@@ -5,8 +5,10 @@ starts from ``--loadmodel``'s.
     python -m ecm_torch.cli.train --datapath /data/sceneflow --steps 20000 \\
         --maxdisp 192 --savemodel ./ckpt
     python -m ecm_torch.cli.train --config overfit_gate     # synthetic gate
-    python -m torch.distributed.run --nproc_per_node 8 -m ecm_torch.cli.train \
+    python -m torch.distributed.run --nproc_per_node 8 -m ecm_torch.cli.train \\
         --multihost --config sceneflow_dp --datapath /data/sceneflow   # 8 cards
+    python -m torch.distributed.run --nproc_per_node 8 -m ecm_torch.cli.train \\
+        --multihost --mesh-disp 2 --config sceneflow_dp ...   # a (4, 2) grid
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ def main(argv: list[str] | None = None) -> None:
         if step0:
             say(f"auto-resumed from step {step0}")
 
-    data_iter, n_samples = make_data_iter(cfg)
+    data_iter, n_samples = make_data_iter(cfg, mesh)
     num_steps = steps_from_epochs(cfg, n_samples)
     state = train_loop(
         state,

@@ -13,9 +13,16 @@ pipeline came after 9.7 s on the H100 machine (NVIDIA H100 80GB HBM3, 700 W;
 
 One intended difference from the JAX package: the shuffle order is
 torch's (``DistributedSampler``), not grain's. What a sample is, given its
-spec and its place in the stream, is the same: the i-th sample a rank draws
-is ``load_fn(spec, crop=cfg.crop, rng=np.random.default_rng((cfg.seed,
+spec and its place in the stream, is the same: the i-th sample a data rank
+draws is ``load_fn(spec, crop=cfg.crop, rng=np.random.default_rng((cfg.seed,
 rank, i)))``.
+
+The rows are split by the data axis of a ``mesh``
+(``ecm_torch.parallel.Mesh``), as ``parallel.batch_sharding`` splits them:
+``rank`` above is the mesh's data index, so the ranks of one disp group,
+which split the disparities of the same pairs, draw the same pairs and the
+same crops. Without a mesh, by the default process group when one is
+initialised (every rank is then on the data axis).
 """
 
 from __future__ import annotations
@@ -42,13 +49,17 @@ class PipelineConfig:
     num_workers: int = 0  # DataLoader worker processes (0 = in-process)
 
 
-def _rank_slice(n_global: int, group=None) -> tuple[int, int, int]:
-    """(rank batch, rank, world size) of this process in ``group`` (None:
-    the default group) when ``torch.distributed`` is initialised, else rank
-    0 of 1."""
+def _rank_slice(n_global: int, mesh=None) -> tuple[int, int, int]:
+    """(rank batch, data index, data ranks) of this process: ``mesh``'s
+    data axis; without one, its rank in the default group when
+    ``torch.distributed`` is initialised, else rank 0 of 1."""
     dist = torch.distributed
-    initialized = dist.is_available() and dist.is_initialized()
-    world, rank = (dist.get_world_size(group), dist.get_rank(group)) if initialized else (1, 0)
+    if mesh is not None:
+        world, rank = mesh.data, mesh.data_index
+    elif dist.is_available() and dist.is_initialized():
+        world, rank = dist.get_world_size(), dist.get_rank()
+    else:
+        world, rank = 1, 0
     if n_global % world:
         raise ValueError(f"global batch {n_global} not divisible by {world} ranks")
     return n_global // world, rank, world
@@ -94,6 +105,7 @@ def make_train_pipeline(
     specs: list,
     load_fn,
     cfg: PipelineConfig,
+    mesh=None,
 ) -> Iterator[dict[str, np.ndarray]]:
     """Training iterator: shuffled, split across ranks, random-cropped,
     batched with the last short batch dropped (batches run on across
@@ -104,8 +116,10 @@ def make_train_pipeline(
       load_fn: ``(spec, crop, rng) -> dict`` (``sceneflow.load_sample``,
         ``kitti.load_sample``, ...).
       cfg: pipeline config (``cfg.batch_size`` is GLOBAL).
+      mesh: the rows are split over its data axis (see the module's
+        docstring).
     """
-    rank_bs, rank, world = _rank_slice(cfg.batch_size)
+    rank_bs, rank, world = _rank_slice(cfg.batch_size, mesh)
     per_epoch = DistributedSampler(
         specs, num_replicas=world, rank=rank, shuffle=cfg.shuffle, seed=cfg.seed, drop_last=True
     )
@@ -153,15 +167,17 @@ def make_synthetic_pipeline(
     w: int = 512,
     max_disp: float = 40.0,
     distinct: int | None = None,
+    mesh=None,
 ) -> Iterator[dict[str, np.ndarray]]:
     """Synthetic stream with the same interface (the overfit gate).
 
     ``distinct`` bounds the number of distinct batches: the stream cycles
     through that many fixed batches (``None``: a fresh batch every step).
-    Batch ``s`` of rank ``r`` comes from the seed ``(cfg.seed, r,
-    s).__hash__() & 0x7FFFFFFF``; a tuple of ints hashes the same in every
-    process, so the batches equal the JAX package's."""
-    rank_bs, rank, _ = _rank_slice(cfg.batch_size)
+    Batch ``s`` of data rank ``r`` (``mesh``'s data index, see the module's
+    docstring) comes from the seed ``(cfg.seed, r, s).__hash__() &
+    0x7FFFFFFF``; a tuple of ints hashes the same in every process, so the
+    batches equal the JAX package's."""
+    rank_bs, rank, _ = _rank_slice(cfg.batch_size, mesh)
     step = 0
     while True:
         s = step if distinct is None else step % distinct

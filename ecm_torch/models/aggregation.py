@@ -28,9 +28,10 @@ kernel runs:
   ``deconv3d_bn``, and the last classifier through the fused pair kernel.
   ``fused`` is ignored, as in JAX.
 
-Under a mesh with a disparity axis (eval only) every 3D conv form runs on
-this rank's slab of the disparities, at each level of the hourglasses: the
-modules through ``ConvBN``/``ConvTransposeBN``, the kernels here through the
+Under a mesh with a disparity axis every 3D conv form runs on this rank's
+slab of the disparities, at each level of the hourglasses, in training as
+at eval: the modules through ``ConvBN``/``ConvTransposeBN``, the eval
+kernels here through the
 ``ecm_torch.parallel.halo`` form of their D arithmetic (``slab_s1`` with a
 halo of 1 for a conv, 2 for a fused pair; ``slab_down``; ``slab_up``).
 """

@@ -10,15 +10,18 @@ and W multiples of 16 (the /4 features meet two stride-2 hourglass levels);
 ``ECMBasic`` with residual blocks and needs multiples of 4. ``max_disp`` is a
 multiple of 4.
 
-Under a mesh with a disparity axis (``ecm_torch.parallel.use_mesh``, eval
-only) every rank of a disp group computes the features, builds the volume
-over its own range of disparities and aggregates its slab at every level;
-the quarter-resolution cost map is then gathered over the group
-(``halo.gather_d``) and every rank regresses the whole map, as GSPMD gathers
-the input of the Pallas regression in ``ecm_tpu`` (a ``pallas_call`` cannot
-be partitioned). The slabs must be equal and split every level into even
-planes: ``(max_disp / 16) % disp == 0`` for ``ECMStereo``, ``(max_disp / 4)
-% disp == 0`` for ``ECMBasic`` (GSPMD pads uneven shards; the port raises).
+Under a mesh with a disparity axis (``ecm_torch.parallel.use_mesh``) every
+rank of a disp group computes the features, builds the volume over its own
+range of disparities and aggregates its slab at every level; the
+quarter-resolution cost maps are then gathered over the group
+(``halo.gather_d``) and every rank regresses the whole maps, as GSPMD
+gathers the input of the Pallas regression in ``ecm_tpu`` (a
+``pallas_call`` cannot be partitioned). In training each rank computes the
+same loss from the gathered maps, and the gather's backward hands each rank
+its own slab's gradient. The slabs must be equal and split every level into
+even planes: ``(max_disp / 16) % disp == 0`` for ``ECMStereo``,
+``(max_disp / 4) % disp == 0`` for ``ECMBasic`` (GSPMD pads uneven shards;
+the port raises).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from ecm_torch.models.context import ContextMapping
 from ecm_torch.models.features import FeatureExtraction
 from ecm_torch.models.layers import ConvBN, init_weights, remat
 from ecm_torch.parallel.halo import gather_d
-from ecm_torch.parallel.sharding import DISP_NOT_PORTED, constrain_volume, disp_mesh
+from ecm_torch.parallel.sharding import constrain_volume, disp_mesh
 from ecm_torch.ops.cost_volume import cost_volume
 from ecm_torch.ops.cuda_regression import fused_upsample_softargmin
 from ecm_torch.ops.softargmin import disparity_regression
@@ -121,8 +124,6 @@ class _StereoModel(nn.Module):
         d4, d_start, planes = self.max_disp // 4, 0, self.max_disp // 4
         mesh = disp_mesh()
         if mesh is not None:
-            if self.training:
-                raise NotImplementedError(DISP_NOT_PORTED)
             if d4 % (self.disp_split * mesh.disp):
                 need = 4 * self.disp_split
                 raise ValueError(

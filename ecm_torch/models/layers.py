@@ -13,7 +13,10 @@ second time, as ``nn.remat`` does. Under an active mesh
 (``ecm_torch.parallel.use_mesh``) the statistics are the global batch's, as
 flax's are under GSPMD's data sharding. Under a mesh with a disparity axis
 the 3D modules run on this rank's slab of the disparities
-(``ecm_torch.parallel.halo``).
+(``ecm_torch.parallel.halo``): the convolution on the halo-padded slab, then
+the crop to the planes this rank owns, then BatchNorm and ReLU, whose
+training statistics are the whole grid's (data x disp); the 2D modules'
+stay the data axis's, as every rank of a disp group computes them whole.
 """
 
 from __future__ import annotations
@@ -127,8 +130,12 @@ class _FlaxBatchNorm:
     the mean and then the sum of squared deviations from it (two passes, as
     on one process) are summed over the ranks through ``Mesh.sum``, whose
     backward sums the ranks' gradients, so forward and backward are those
-    of one BatchNorm over the concatenated batch. ``nn.SyncBatchNorm`` is
-    not used: it folds in the unbiased variance."""
+    of one BatchNorm over the concatenated batch: over the data axis, or
+    with ``over_grid`` (``BatchNorm3d``, whose input is this rank's slab of
+    the disparities under a disp mesh) over the whole grid.
+    ``nn.SyncBatchNorm`` is not used: it folds in the unbiased variance."""
+
+    over_grid = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -136,11 +143,11 @@ class _FlaxBatchNorm:
         self._check_input_dim(x)
         c = x.shape[1]
         n = x.numel() // c
-        mesh = reduction_mesh()
+        mesh = reduction_mesh(self.over_grid)
         if mesh is not None:
             # every rank holds at least one value a channel: the global
             # count is at least 2, so flax's one-value case cannot arise
-            y, mean, var = _global_batch_norm(x, self.weight, self.bias, self.eps, mesh)
+            y, mean, var = _global_batch_norm(x, self.weight, self.bias, self.eps, mesh, self.over_grid)
         elif n > 1:
             # with momentum 1, batch_norm writes the batch mean and the
             # unbiased batch variance into these two buffers
@@ -166,19 +173,19 @@ class _FlaxBatchNorm:
         return y
 
 
-def _global_batch_norm(x, weight, bias, eps, mesh):
+def _global_batch_norm(x, weight, bias, eps, mesh, grid=False):
     """``(y, mean, biased var)`` of channels-first ``x`` over every dim but C
-    and over the ranks of ``mesh``, in f32 (f64 for f64 ``x``); ``y`` in
-    ``x``'s dtype."""
+    and over the ranks of ``mesh`` (``Mesh.sum(..., grid)``), in f32 (f64
+    for f64 ``x``); ``y`` in ``x``'s dtype."""
     c = x.shape[1]
     dims = [0, *range(2, x.ndim)]
     shape = (1, c) + (1,) * (x.ndim - 2)
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    sums = mesh.sum(torch.cat([xf.sum(dims), xf.new_full((1,), x.numel() // c)]))
+    sums = mesh.sum(torch.cat([xf.sum(dims), xf.new_full((1,), x.numel() // c)]), grid)
     count = sums[c:].detach()
     mean = sums[:c] / count
     dev = xf - mean.view(shape)
-    var = mesh.sum(dev.square().sum(dims)) / count
+    var = mesh.sum(dev.square().sum(dims), grid) / count
     y = dev * (torch.rsqrt(var + eps) * weight).view(shape) + bias.view(shape)
     return y.to(x.dtype), mean.detach(), var.detach()
 
@@ -188,7 +195,7 @@ class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
 
 
 class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
-    pass
+    over_grid = True
 
 
 def fold_bn(bn: nn.modules.batchnorm._BatchNorm) -> tuple[torch.Tensor, torch.Tensor]:
@@ -240,18 +247,21 @@ class ConvBN(nn.Module):
     def forward(self, x: torch.Tensor, gband: bool = False) -> torch.Tensor:
         """``gband``: the conv through ``gband_conv_s1`` (a 3D stride-1 conv
         of the full-resolution stack in training, JAX's ``GConv3D`` path). A
-        3D conv runs on this rank's disparity slab under a disp mesh."""
+        3D conv runs on this rank's disparity slab under a disp mesh, and
+        BatchNorm sees only the planes this rank owns."""
         if isinstance(self.conv, nn.Conv3d):
             if self.conv.stride[0] == 2:
-                return slab_down(self._forward, x)
-            return slab_s1(lambda v: self._forward(v, gband), x)
-        return self._forward(x, gband)
-
-    def _forward(self, x: torch.Tensor, gband: bool = False) -> torch.Tensor:
-        if gband:
-            y = gband_conv_s1(x, self.conv.weight)
+                y = slab_down(self._conv, x)
+            else:
+                y = slab_s1(lambda v: self._conv(v, gband), x)
             return self._bn_relu(y.movedim(-1, 1)).movedim(1, -1)
         return self.forward_cf(x.movedim(-1, 1)).movedim(1, -1)
+
+    def _conv(self, x: torch.Tensor, gband: bool = False) -> torch.Tensor:
+        """The bias-free conv of NDHWC ``x``, NDHWC out."""
+        if gband:
+            return gband_conv_s1(x, self.conv.weight)
+        return conv(self.conv, x.movedim(-1, 1)).movedim(1, -1)
 
 
 class ConvTransposeBN(nn.Module):
@@ -266,11 +276,9 @@ class ConvTransposeBN(nn.Module):
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """On this rank's disparity slab under a disp mesh."""
-        return slab_up(self._forward, x)
-
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.bn(conv(self.deconv, x.movedim(-1, 1)))
+        """On this rank's disparity slab under a disp mesh, BatchNorm on the
+        planes this rank owns."""
+        y = self.bn(slab_up(lambda v: conv(self.deconv, v.movedim(-1, 1)).movedim(1, -1), x).movedim(-1, 1))
         return (F.relu(y) if self.relu else y).movedim(1, -1)
 
 

@@ -1,10 +1,9 @@
 """Parallelism of the port (``ecm_tpu.parallel``): a ``("data", "disp")``
 mesh over a ``torch.distributed`` process group; on the data axis,
 global-batch BatchNorm, loss and metrics under :func:`use_mesh`; on the
-disparity axis (eval), each rank's slab of the disparities with the halo
-exchanges of ``halo``; and ``dryrun`` (the counterpart of
-``__graft_entry__.dryrun_multichip``). Training on the disparity axis is
-slice 11 of the port."""
+disparity axis, each rank's slab of the disparities with the halo exchanges
+of ``halo`` and their backward; and ``dryrun`` (the counterpart of
+``__graft_entry__.dryrun_multichip``)."""
 
 from ecm_torch.parallel.sharding import (
     Mesh,

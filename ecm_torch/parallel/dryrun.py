@@ -1,16 +1,19 @@
-"""Multi-process dry run of the data axis: the counterpart of
-``__graft_entry__.dryrun_multichip`` (whose disparity half is slice 10).
+"""Multi-process dry run: the counterpart of
+``__graft_entry__.dryrun_multichip``, on a ``(data, disp)`` grid of the
+ranks (``--mesh-disp``, default 1: every rank on the data axis).
 
 Each rank draws its own weights, takes rank 0's (``replicate``, as the JAX
-dry run replicates its state) and its rows of one global batch, and runs
-one full train step (forward, loss, backward, gradient all-reduce, Adam,
-BatchNorm statistics) through ``make_train_step`` over the group. Rank 0
-first runs the same step on the whole batch in one process and asserts
-that the group's loss and updated-parameter global norm equal it, at
-``dryrun_multichip``'s tolerances. Shapes as there: max-disp 32, 32x64,
-width 8, ``remat`` on, 2 pairs a rank.
+dry run replicates its state) and its data row's rows of one global batch,
+and runs one full train step (forward, halo exchanges with a disp axis,
+loss, backward, gradient reduction, Adam, BatchNorm statistics) through
+``make_train_step`` over the grid. Rank 0 first runs the same step on the
+whole batch in one process and asserts that the grid's loss and
+updated-parameter global norm equal it, at ``dryrun_multichip``'s
+tolerances. Shapes as there: max-disp 32, 32x64, width 8, ``remat`` on, 2
+pairs a data row.
 
     python -m ecm_torch.parallel.dryrun --nproc 2                  # 2 CPU ranks, gloo
+    python -m ecm_torch.parallel.dryrun --nproc 4 --mesh-disp 2    # a (2, 2) grid
     python -m ecm_torch.parallel.dryrun --nproc 2 --device cuda:0  # 2 ranks on one card, gloo
     python -m torch.distributed.run --nproc_per_node 2 -m ecm_torch.parallel.dryrun
 
@@ -81,11 +84,14 @@ def launch(argv: list[str], nproc: int, timeout: float) -> list[str]:
     return outs
 
 
-def dryrun_multichip(n_ranks: int, device: str = "cpu", backend: str = "gloo", timeout: float = 240.0) -> dict:
-    """The dry run on ``n_ranks`` ranks on ``device`` (every rank on the same
-    one, e.g. ``cuda:0``, over gloo; NCCL takes one card a rank). Returns
-    rank 0's record: the group's and one process's loss and parameter norm."""
-    outs = launch(["--device", device, "--backend", backend, "--timeout", str(timeout)], n_ranks, timeout)
+def dryrun_multichip(n_ranks: int, device: str = "cpu", backend: str = "gloo", timeout: float = 240.0,
+                     disp: int = 1) -> dict:
+    """The dry run on ``n_ranks`` ranks, a ``(n_ranks / disp, disp)`` grid,
+    on ``device`` (every rank on the same one, e.g. ``cuda:0``, over gloo;
+    NCCL takes one card a rank). Returns rank 0's record: the grid's and
+    one process's loss and parameter norm."""
+    outs = launch(["--device", device, "--backend", backend, "--timeout", str(timeout), "--mesh-disp", str(disp)],
+                  n_ranks, timeout)
     line = [s for s in outs[0].splitlines() if s.startswith("dryrun ")][-1]
     return json.loads(line[len("dryrun "):])
 
@@ -139,12 +145,13 @@ def _dryrun_rank(mesh, device) -> dict | None:
         raise AssertionError(f"non-finite loss {loss}")
     # a wrong collective (a missed reduction, per-rank statistics) shifts the
     # loss and the Adam update
+    grid = f"a ({mesh.data}, {mesh.disp}) grid"
     if not abs(loss - ref_loss) <= 1e-3 * max(1.0, abs(ref_loss)):
-        raise AssertionError(f"loss {loss} over {mesh.data} ranks, {ref_loss} in one process")
+        raise AssertionError(f"loss {loss} over {grid}, {ref_loss} in one process")
     if not abs(norm - ref_norm) <= 1e-4 * max(1.0, ref_norm):
-        raise AssertionError(f"parameter norm {norm} over {mesh.data} ranks, {ref_norm} in one process")
-    return dict(ranks=mesh.data, device=str(device), loss=loss, loss_one_process=ref_loss,
-                param_norm=norm, param_norm_one_process=ref_norm)
+        raise AssertionError(f"parameter norm {norm} over {grid}, {ref_norm} in one process")
+    return dict(ranks=mesh.data * mesh.disp, data=mesh.data, disp=mesh.disp, device=str(device), loss=loss,
+                loss_one_process=ref_loss, param_norm=norm, param_norm_one_process=ref_norm)
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
@@ -207,6 +214,60 @@ def _slab_form(case: dict, mesh, device) -> torch.Tensor:
         ctx = None if add is None else add[:, 0]
         return halo.slab_s1(lambda v: cuda_fused_agg.fused_conv3d_pair(v, *args, ctx, **kw), x, halo=2)
     raise ValueError(f"unknown kernel form {name!r}")
+
+
+def _slab_train(case: dict, mesh, device) -> dict:
+    """A module of the 3D stack in training on this rank's slab of
+    ``case["x"]`` (``case["module"]`` with ``case["module_args"]``,
+    ``case["state_dict"]`` and the forward's ``case.get("kwargs", {})``),
+    backward from its slab of ``case["dy"]``: the output, the input's
+    gradient, the parameters' gradients (this rank's share), the running
+    statistics and the halo traffic (counts 0 just before)."""
+    from ecm_torch.models import aggregation, layers
+    from ecm_torch.parallel import halo
+    from ecm_torch.parallel.sharding import use_mesh
+
+    cls = {"ConvBN": layers.ConvBN, "ConvTransposeBN": layers.ConvTransposeBN,
+           "ClassifHead": aggregation.ClassifHead}[case["module"]]
+    module = cls(*case["module_args"]).to(device, case["x"].dtype)
+    module.load_state_dict(case["state_dict"])
+    module.train()
+    x = _slab(case["x"], mesh).to(device).requires_grad_(True)
+    halo.reset_traffic()
+    with use_mesh(mesh):
+        y = module(x, **case.get("kwargs", {}))
+        y.backward(_slab(case["dy"], mesh, y.shape[1] / x.shape[1]).to(device))
+    return dict(out=_host(y), dx=_host(x.grad), traffic=halo.read_traffic(),
+                grads={n: _host(p.grad) for n, p in module.named_parameters()},
+                state={k: _host(v) for k, v in module.state_dict().items()})
+
+
+def _gather_grad(case: dict, mesh, device) -> dict:
+    """``gather_d`` of this rank's slab of ``case["x"]``, backward from the
+    whole ``case["dy"]``: the gathered tensor and the slab's gradient."""
+    from ecm_torch.parallel import halo
+
+    x = _slab(case["x"], mesh).to(device).requires_grad_(True)
+    y = halo.gather_d(x, mesh)
+    y.backward(case["dy"].to(device))
+    return dict(out=_host(y), dx=_host(x.grad))
+
+
+def _rows(case: dict, mesh) -> dict:
+    """The first ``case["batches"]`` batches of this rank's train pipeline
+    over ``mesh`` (``make_train_pipeline`` on the SceneFlow tree
+    ``case["tree"]``, and ``make_synthetic_pipeline``), with
+    ``case["pipeline"]``'s PipelineConfig fields."""
+    from ecm_torch.data.pipeline import PipelineConfig, make_synthetic_pipeline, make_train_pipeline
+    from ecm_torch.data.sceneflow import list_sceneflow, load_sample
+
+    cfg = PipelineConfig(**case["pipeline"])
+    specs, _ = list_sceneflow(case["tree"])
+    out = {}
+    for name, it in (("sceneflow", make_train_pipeline(specs, load_sample, cfg, mesh)),
+                     ("synthetic", make_synthetic_pipeline(cfg, h=16, w=32, max_disp=8.0, mesh=mesh))):
+        out[name] = [{k: torch.from_numpy(v) for k, v in next(it).items()} for _ in range(case["batches"])]
+    return out
 
 
 def disp_eval(case: dict, mesh, device) -> dict:
@@ -300,9 +361,11 @@ def run_case(case: dict, mesh, device) -> dict:
       ``case["batch"]`` (global tensors) at learning rate ``case["lr"]``;
       then ``case.get("timed_steps", 0)`` more steps, timed. Returns the
       logged loss and metrics, this rank's predictions, the gradients of
-      ``case.get("grads")`` (every parameter for None), the state after the
-      step, the kernels' launch counts during it, the timed steps' ms and
-      the peak device memory.
+      ``case.get("grads")`` (every parameter for None; TF32 off, as
+      ``chip_smoke.py`` steps its references), the state after the
+      step, the kernels' launch counts, the halo traffic and the copies
+      ``gband_conv_s1`` made of a strided input during it, the timed steps'
+      ms and the peak device memory.
     - ``"bn"``: ``BatchNorm{case["ndim"]}d`` with ``case["state_dict"]`` in
       training on this rank's rows of ``case["x"]``, backward from its rows
       of ``case["dy"]``. Returns y, dx, the weight and bias gradients (this
@@ -315,6 +378,11 @@ def run_case(case: dict, mesh, device) -> dict:
       ``case["costs"]``.
     - ``"slab"``: one conv form on this rank's slab (:func:`_slab_form`);
       returns ``{"out": ...}``.
+    - ``"slab_train"``: a 3D module in training on this rank's slab,
+      forward and backward (:func:`_slab_train`).
+    - ``"gather_grad"``: ``gather_d`` and its backward (:func:`_gather_grad`).
+    - ``"rows"``: this rank's first batches of the train pipelines
+      (:func:`_rows`).
     - ``"disp_eval"``: the eval forward (:func:`disp_eval`).
     - ``"gloo_cuda"``: whether the group's backend all-gathers CUDA tensors
       and sends them point to point (``batch_isend_irecv`` with the rank
@@ -331,7 +399,9 @@ def run_case(case: dict, mesh, device) -> dict:
     """
     from ecm_torch.configs import CONFIGS
     from ecm_torch.models.layers import BatchNorm2d, BatchNorm3d
+    from ecm_torch.ops.cuda_gband import gband_conv_s1
     from ecm_torch.ops.launches import read_counts, reset_counts
+    from ecm_torch.parallel import halo
     from ecm_torch.parallel.sharding import batch_sharding, use_mesh
     from ecm_torch.train import checkpoint as ckpt_lib
     from ecm_torch.train.loop import train_loop
@@ -349,6 +419,12 @@ def run_case(case: dict, mesh, device) -> dict:
             return {"out": _host(_slab_form(case, mesh, device))}
     if case["kind"] == "disp_eval":
         return disp_eval(case, mesh, device)
+    if case["kind"] == "slab_train":
+        return _slab_train(case, mesh, device)
+    if case["kind"] == "gather_grad":
+        return _gather_grad(case, mesh, device)
+    if case["kind"] == "rows":
+        return _rows(case, mesh)
     if case["kind"] == "gloo_cuda":
         return _gloo_cuda(mesh, device)
     if case["kind"] == "grid":
@@ -379,13 +455,15 @@ def run_case(case: dict, mesh, device) -> dict:
     if "state_dict" in case:
         model.load_state_dict(case["state_dict"])
     state = create_train_state(model, make_optimizer(case.get("lr", 1e-3)))
+    # as chip_smoke.py computes its one-process references (an f32 step)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     step = make_train_step(model, model.max_disp, mesh)
     if case["kind"] == "loop":
         from ecm_torch.data.pipeline import PipelineConfig, make_synthetic_pipeline
 
         pipe = dict(case["pipeline"])
         h, w, max_disp = pipe.pop("h"), pipe.pop("w"), pipe.pop("max_disp")
-        data = make_synthetic_pipeline(PipelineConfig(**pipe), h=h, w=w, max_disp=max_disp)
+        data = make_synthetic_pipeline(PipelineConfig(**pipe), h=h, w=w, max_disp=max_disp, mesh=mesh)
         manager = ckpt_lib.make_manager(case["ckpt_dir"])
         for num_steps in case["steps"]:
             state = train_loop(state, step, data, num_steps, mesh=mesh, log_every=1, ckpt_manager=manager,
@@ -400,17 +478,21 @@ def run_case(case: dict, mesh, device) -> dict:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     reset_counts()
+    halo.reset_traffic()
+    copies = gband_conv_s1.copies
     state, metrics = step(state, batch)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    launches = read_counts()
+    launches, traffic = read_counts(), halo.read_traffic()
+    copies = gband_conv_s1.copies - copies
     hook.remove()
     names = case.get("grads") or [n for n, _ in model.named_parameters()]
     params = dict(model.named_parameters())
     out = dict(
         metrics={k: float(v) for k, v in metrics.items()}, preds=[_host(p) for p in preds],
         grads={n: _host(params[n].grad) for n in names},
-        state={k: _host(v) for k, v in model.state_dict().items()}, launches=launches,
+        state={k: _host(v) for k, v in model.state_dict().items()}, launches=launches, traffic=traffic,
+        gband_copies=copies,
     )
     times = []
     for _ in range(case.get("timed_steps", 0)):
@@ -430,6 +512,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--device", default="cpu", help="cpu, cuda (cuda:LOCAL_RANK) or cuda:K (every rank)")
     p.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
     p.add_argument("--timeout", type=float, default=240.0, help="seconds for the run and for each collective")
+    p.add_argument("--mesh-disp", type=int, default=1, help="the disp axis of the ranks' (data, disp) grid")
     p.add_argument("--cases", default=None, help="a torch.save file of cases (see run_case)")
     p.add_argument("--out", default=None, help="with --cases: a directory for rank<r>.pt")
     args = p.parse_args(argv)
@@ -446,15 +529,15 @@ def main(argv: list[str] | None = None) -> int:
     torch.set_num_threads(1)  # ranks share the host's cores
     device = torch.device(init_from_env(args.device, args.backend, args.timeout))
     try:
-        mesh = make_mesh()
+        mesh = make_mesh(disp=args.mesh_disp)
         if args.cases:
             cases = torch.load(args.cases, weights_only=True)
             # every rank makes each case's mesh (and its subgroups) in the
             # same order: the cases' order
-            meshes = {(mesh.data, 1): mesh}
+            meshes = {(mesh.data, mesh.disp): mesh}
             results = {}
             for c in cases:
-                shape = tuple(c.get("mesh", (mesh.data, 1)))
+                shape = tuple(c.get("mesh", (mesh.data, mesh.disp)))
                 if shape not in meshes:
                     meshes[shape] = make_mesh(*shape)
                 results[c["name"]] = run_case(c, meshes[shape], device)

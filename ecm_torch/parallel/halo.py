@@ -1,5 +1,5 @@
-"""The disparity axis of the eval forward over ``torch.distributed`` (port of
-``ecm_tpu/parallel/halo.py``).
+"""The disparity axis of the 3D stack over ``torch.distributed``, forward and
+backward (port of ``ecm_tpu/parallel/halo.py``).
 
 ``ecm_tpu`` shards the cost volume's disparity axis with a GSPMD hint and
 XLA inserts the halo exchanges around each 3D convolution; its ``halo.py``
@@ -30,14 +30,23 @@ takes no halo there: the form's own zero padding is then the unsharded
 one, which a zero halo would not be for a fused pair (its intermediate's
 padding). Every output plane that is kept reads only real planes.
 
+In training the padding, the crops and the zero planes differentiate as
+they are; the exchange is one ``autograd.Function`` whose backward returns
+each received plane's gradient to the rank that owns the plane (the
+neighbours swap the forward's ``lo`` and ``hi``), and the gather's backward
+keeps this rank's slice, since every rank computes the loss from the whole
+gathered map. Each Function keeps its mesh (autograd runs a CUDA backward
+on a thread of its own, which does not see the thread-local one).
+
 Transport is chosen by the disp group's backend name: NCCL sends CUDA
 tensors point to point (``batch_isend_irecv``, so no pair of ranks
 deadlocks) and all-gathers them; gloo has no CUDA point-to-point or
 all-gather, so a CUDA slab is copied (synchronously) into a pinned host
 buffer, sent by gloo and copied back. That is how ranks that share one card
 run. CPU tensors go over gloo as they are. Every collective raises on a
-failed rank. :func:`read_traffic` counts, per rank, the messages and bytes
-received by the halos and the gathers, and the copies made to give a kernel
+failed rank, the backward's messages too. :func:`read_traffic` counts, per
+rank, the messages and bytes received by the halos (forward, and apart the
+backward's gradients) and the gathers, and the copies made to give a kernel
 a contiguous slab.
 """
 
@@ -49,7 +58,8 @@ import torch.nn.functional as F
 
 from ecm_torch.parallel.sharding import Mesh, disp_mesh
 
-TRAFFIC_KEYS = ("halo_messages", "halo_bytes", "gather_messages", "gather_bytes", "copies")
+TRAFFIC_KEYS = ("halo_messages", "halo_bytes", "halo_grad_messages", "halo_grad_bytes", "gather_messages",
+                "gather_bytes", "copies")
 _traffic = dict.fromkeys(TRAFFIC_KEYS, 0)
 
 
@@ -84,42 +94,99 @@ def _buffer(like: torch.Tensor, shape, backend: str) -> torch.Tensor:
     return like.new_empty(shape)
 
 
-def _exchange(vol: torch.Tensor, mesh: Mesh, lo: int, hi: int):
-    """``(below, above)``: the ``lo`` highest planes of the rank below and
-    the ``hi`` lowest planes of the rank above, each None at an end of the
-    global range (or for a halo of 0). Every rank of the disp group calls
-    it with the same ``lo`` and ``hi``."""
-    if vol.shape[1] < max(lo, hi):
-        raise ValueError(f"a slab of {vol.shape[1]} planes cannot give a halo of {max(lo, hi)}")
+def _send_recv(mesh: Mesh, like: torch.Tensor, sends: dict, recvs: dict) -> dict:
+    """One batch of point-to-point messages on the disp group: ``sends``
+    maps a neighbour's disp index to the planes for it, ``recvs`` a
+    neighbour's disp index to the number of planes to take from it. Returns
+    the received planes by disp index, on ``like``'s device."""
     backend = _backend(mesh)
-    i, n = mesh.disp_index, mesh.disp
-    ops, recvs = [], {}
-
-    def send(planes: torch.Tensor, peer: int) -> None:
+    ops, bufs = [], {}
+    for peer, planes in sends.items():
         ops.append(dist.P2POp(dist.isend, _staged(planes, backend), mesh.disp_ranks[peer], mesh.disp_group))
-
-    def recv(name: str, planes: int, peer: int) -> None:
-        buf = _buffer(vol, (vol.shape[0], planes, *vol.shape[2:]), backend)
-        recvs[name] = buf
-        ops.append(dist.P2POp(dist.irecv, buf, mesh.disp_ranks[peer], mesh.disp_group))
-
-    if i > 0:
-        if hi:
-            send(vol[:, :hi], i - 1)
-        if lo:
-            recv("below", lo, i - 1)
-    if i < n - 1:
-        if lo:
-            send(vol[:, vol.shape[1] - lo:], i + 1)
-        if hi:
-            recv("above", hi, i + 1)
+    for peer, planes in recvs.items():
+        bufs[peer] = _buffer(like, (like.shape[0], planes, *like.shape[2:]), backend)
+        ops.append(dist.P2POp(dist.irecv, bufs[peer], mesh.disp_ranks[peer], mesh.disp_group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    for buf in recvs.values():
-        _traffic["halo_messages"] += 1
-        _traffic["halo_bytes"] += buf.numel() * buf.element_size()
-    return tuple(None if k not in recvs else recvs[k].to(vol.device) for k in ("below", "above"))
+    return {peer: buf.to(like.device) for peer, buf in bufs.items()}
+
+
+def _count(kind: str, planes) -> None:
+    for t in planes:
+        _traffic[f"{kind}_messages"] += 1
+        _traffic[f"{kind}_bytes"] += t.numel() * t.element_size()
+
+
+class _HaloPad(torch.autograd.Function):
+    """This rank's slab with the ``lo`` highest planes of the rank below
+    before it and the ``hi`` lowest planes of the rank above after it, none
+    at an end of the global range. The backward sends the gradient of each
+    received plane back to its owner, which adds it to the gradient of its
+    own edge planes. Every rank of the disp group calls it with the same
+    ``lo`` and ``hi``, and each rank's node runs its backward (its output
+    always reaches the loss), so the ranks exchange in one order both
+    ways."""
+
+    @staticmethod
+    def forward(ctx, vol: torch.Tensor, mesh: Mesh, lo: int, hi: int) -> torch.Tensor:
+        if vol.shape[1] < max(lo, hi):
+            raise ValueError(f"a slab of {vol.shape[1]} planes cannot give a halo of {max(lo, hi)}")
+        i, n, d = mesh.disp_index, mesh.disp, vol.shape[1]
+        sends, recvs = {}, {}
+        if i > 0:
+            if hi:
+                sends[i - 1] = vol[:, :hi]
+            if lo:
+                recvs[i - 1] = lo
+        if i < n - 1:
+            if lo:
+                sends[i + 1] = vol[:, d - lo:]
+            if hi:
+                recvs[i + 1] = hi
+        got = _send_recv(mesh, vol, sends, recvs)
+        _count("halo", got.values())
+        ctx.mesh, ctx.lo, ctx.hi = mesh, lo, hi
+        ctx.below, ctx.above = i - 1 in got, i + 1 in got
+        parts = [t for t in (got.get(i - 1), vol, got.get(i + 1)) if t is not None]
+        return torch.cat(parts, 1) if len(parts) > 1 else vol.view_as(vol)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        mesh, lo, hi = ctx.mesh, ctx.lo, ctx.hi
+        i = mesh.disp_index
+        start = lo if ctx.below else 0
+        d = grad.shape[1] - start - (hi if ctx.above else 0)
+        sends = {}
+        if ctx.below:
+            sends[i - 1] = grad[:, :lo]
+        if ctx.above:
+            sends[i + 1] = grad[:, start + d:]
+        # the owner's side: a neighbour took planes from this rank where it
+        # exists and its halo on this side is not 0
+        recvs = {}
+        if i > 0 and hi:
+            recvs[i - 1] = hi
+        if i < mesh.disp - 1 and lo:
+            recvs[i + 1] = lo
+        got = _send_recv(mesh, grad, sends, recvs)
+        _count("halo_grad", got.values())
+        gvol = grad[:, start:start + d]
+        if got:
+            gvol = gvol.clone()
+            if i - 1 in got:
+                gvol[:, :hi] += got[i - 1]
+            if i + 1 in got:
+                gvol[:, d - lo:] += got[i + 1]
+        return gvol, None, None, None
+
+
+def _halo_pad(vol: torch.Tensor, mesh: Mesh, lo: int, hi: int) -> tuple[torch.Tensor, int, int]:
+    """``(padded, below, above)``: :class:`_HaloPad`'s slab and the number of
+    planes it put before and after this rank's."""
+    below = lo if mesh.disp_index > 0 else 0
+    above = hi if mesh.disp_index < mesh.disp - 1 else 0
+    return _HaloPad.apply(vol, mesh, lo, hi), below, above
 
 
 def _zero_planes(t: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
@@ -148,9 +215,8 @@ def halo_exchange_d(vol: torch.Tensor, mesh: Mesh, halo: int = 1) -> torch.Tenso
     """This rank's slab ``[B, Dl, ...]`` with ``halo`` planes from each ring
     neighbour before and after it, zero planes at the ends of the global
     range: ``[B, Dl + 2 halo, ...]`` (``ecm_tpu/parallel/halo.py:36``)."""
-    below, above = _exchange(vol, mesh, halo, halo)
-    zeros = vol.new_zeros((vol.shape[0], halo, *vol.shape[2:]))
-    return torch.cat([zeros if below is None else below, vol, zeros if above is None else above], 1)
+    padded, below, above = _halo_pad(vol, mesh, halo, halo)
+    return _zero_planes(padded, halo - below, halo - above)
 
 
 def conv3d_d_sharded(vol: torch.Tensor, weight: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -179,16 +245,33 @@ def softargmin_d_sharded(cost: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return num_den[0] / num_den[1]
 
 
+class _GatherD(torch.autograd.Function):
+    """The all-gather of :func:`gather_d`. Every rank of the disp group
+    computes the same loss from the gathered map, so the gradient of this
+    rank's slab is its own slice of the incoming gradient: a sum over the
+    group (``torch.distributed.nn``'s all-gather) would count it ``disp``
+    times. The backward sends nothing."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+        local = _staged(t, _backend(mesh))
+        parts = [torch.empty_like(local) for _ in range(mesh.disp)]
+        dist.all_gather(parts, local, group=mesh.disp_group)
+        _traffic["gather_messages"] += mesh.disp - 1
+        _traffic["gather_bytes"] += (mesh.disp - 1) * local.numel() * local.element_size()
+        ctx.start, ctx.planes = mesh.disp_index * t.shape[1], t.shape[1]
+        return torch.cat(parts, 1).to(t.device)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad.narrow(1, ctx.start, ctx.planes), None
+
+
 def gather_d(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The disp group's slabs ``[B, Dl, ...]`` concatenated along D in the
-    order of the group's ranks: ``[B, disp * Dl, ...]`` on every rank."""
-    backend = _backend(mesh)
-    local = _staged(t, backend)
-    parts = [torch.empty_like(local) for _ in range(mesh.disp)]
-    dist.all_gather(parts, local, group=mesh.disp_group)
-    _traffic["gather_messages"] += mesh.disp - 1
-    _traffic["gather_bytes"] += (mesh.disp - 1) * local.numel() * local.element_size()
-    return torch.cat(parts, 1).to(t.device)
+    order of the group's ranks: ``[B, disp * Dl, ...]`` on every rank;
+    the backward keeps this rank's slice (:class:`_GatherD`)."""
+    return _GatherD.apply(t, mesh)
 
 
 def slab_s1(fn, x: torch.Tensor, halo: int = 1, add: torch.Tensor | None = None) -> torch.Tensor:
@@ -203,9 +286,7 @@ def slab_s1(fn, x: torch.Tensor, halo: int = 1, add: torch.Tensor | None = None)
     mesh = disp_mesh()
     if mesh is None:
         return fn(x) if add is None else fn(x, add)
-    below, above = _exchange(x, mesh, halo, halo)
-    lo, hi = (0 if below is None else halo), (0 if above is None else halo)
-    xp = torch.cat([t for t in (below, x, above) if t is not None], 1)
+    xp, lo, hi = _halo_pad(x, mesh, halo, halo)
     if add is None:
         y = fn(xp)
     else:
@@ -225,11 +306,10 @@ def slab_down(fn, x: torch.Tensor) -> torch.Tensor:
         return fn(x)
     if x.shape[1] % 2:
         raise ValueError(f"a stride-2 conv on a slab of {x.shape[1]} planes: slabs must split into even planes")
-    below, _ = _exchange(x, mesh, 1, 0)
-    if below is None:
-        return fn(x)
-    y = fn(torch.cat([torch.zeros_like(below), below, x], 1))
-    return _crop(y, 1, x.shape[1] // 2)
+    xp, below, _ = _halo_pad(x, mesh, 1, 0)
+    if not below:
+        return fn(xp)
+    return _crop(fn(_zero_planes(xp, 1, 0)), 1, x.shape[1] // 2)
 
 
 def slab_up(fn, x: torch.Tensor, add: torch.Tensor | None = None) -> torch.Tensor:
@@ -243,9 +323,8 @@ def slab_up(fn, x: torch.Tensor, add: torch.Tensor | None = None) -> torch.Tenso
     mesh = disp_mesh()
     if mesh is None:
         return fn(x) if add is None else fn(x, add)
-    _, above = _exchange(x, mesh, 0, 1)
-    if above is None:
-        return fn(x) if add is None else fn(x, add)
-    xp = torch.cat([x, above], 1)
+    xp, _, above = _halo_pad(x, mesh, 0, 1)
+    if not above:
+        return fn(xp) if add is None else fn(xp, add)
     y = fn(xp) if add is None else fn(xp, _zero_planes(add, 0, 2))
     return _crop(y, 0, 2 * x.shape[1])

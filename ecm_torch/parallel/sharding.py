@@ -14,16 +14,16 @@ runs on one card (or on the CPU), the processes of a group form a
 - under :func:`use_mesh`, BatchNorm in training takes the global batch's
   statistics and the loss and metrics the global batch's masked means
   (``ecm_torch.models.layers``, ``ecm_torch.train``), through
-  :meth:`Mesh.sum` over the data axis; ``train.steps.make_train_step``
-  reduces the gradients;
+  :meth:`Mesh.sum`: over the data axis, or for the 3D BatchNorms of a disp
+  mesh over the whole grid; ``train.steps.make_train_step`` reduces the
+  gradients;
 - with ``disp > 1`` each rank of a disp group holds its own range of the
-  disparities at every level of the eval forward's 3D stack
+  disparities at every level of the 3D stack, forward and backward
   (``ecm_torch.parallel.halo``).
 
-Intended differences: ``ecm_tpu`` may build its mesh over a subset of its
+Intended difference: ``ecm_tpu`` may build its mesh over a subset of its
 devices; here every rank of the group is in the grid, so ``data * disp`` is
-the group's size. Training with ``disp > 1`` is slice 11 of the port and
-raises :data:`DISP_NOT_PORTED`.
+the group's size.
 """
 
 from __future__ import annotations
@@ -38,12 +38,6 @@ import torch
 import torch.distributed as dist
 import torch.distributed.nn.functional as dist_fn
 from torch import nn
-
-DISP_NOT_PORTED = (
-    "training on the disparity axis (mesh disp > 1) is not ported yet: it is slice 11 of the port "
-    "(ROADMAP queue 1: a halo exchange with a backward, BatchNorm statistics over data x disp); "
-    "evaluate and submission run on it (--multihost --mesh-disp N)"
-)
 
 _state = threading.local()
 
@@ -83,14 +77,16 @@ class Mesh:
         length = n // self.disp
         return self.disp_index * length, length
 
-    def sum(self, t: torch.Tensor) -> torch.Tensor:
+    def sum(self, t: torch.Tensor, grid: bool = False) -> torch.Tensor:
         """The sum of ``t`` over the data axis (this rank's column), on every
         rank: the ranks of a disp group hold the same batch rows, so a sum
-        over them would count each row ``disp`` times. Autograd-aware: the
-        gradient of each rank's ``t`` is the sum of the ranks' gradients of
-        the result, so a step through it is the step of one process on the
-        concatenated batch."""
-        group = self.group if self.disp == 1 else self.data_group
+        over them would count each row ``disp`` times. ``grid``: over the
+        whole grid, for values that each rank of a disp group holds a part
+        of (a 3D BatchNorm's sums over its slab of the disparities).
+        Autograd-aware: the gradient of each rank's ``t`` is the sum of the
+        ranks' gradients of the result, so a step through it is the step of
+        one process on the concatenated batch."""
+        group = self.group if grid or self.disp == 1 else self.data_group
         if not t.requires_grad:
             t = t.clone()
             dist.all_reduce(t, group=group)
@@ -110,15 +106,7 @@ def make_mesh(data: int | None = None, disp: int = 1, group: dist.ProcessGroup |
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised torch.distributed process group")
     world = dist.get_world_size(group)
-    if disp < 1 or world % disp:
-        raise ValueError(f"mesh disp={disp} with {world} ranks: the disp axis must divide the group")
-    if data is None:
-        data = world // disp
-    if data * disp != world:
-        raise ValueError(
-            f"mesh data={data} x disp={disp} with {world} ranks: every rank of the group is in the grid, "
-            "so data * disp is the group's size (ecm_tpu may take a subset of its devices; the port does not)"
-        )
+    data = grid_shape(world, data, disp)
     rank = dist.get_rank(group)
     if disp == 1:
         return Mesh(group=group, data=world, rank=rank)
@@ -129,6 +117,22 @@ def make_mesh(data: int | None = None, disp: int = 1, group: dist.ProcessGroup |
     col_groups = [dist.new_group(col) for col in cols]
     return Mesh(group=group, data=data, rank=rank, disp=disp, data_group=col_groups[rank % disp],
                 disp_group=row_groups[rank // disp], disp_ranks=tuple(rows[rank // disp]))
+
+
+def grid_shape(world: int, data: int | None, disp: int) -> int:
+    """The data axis of a ``data`` x ``disp`` grid over ``world`` ranks
+    (``data=None``: ``world / disp``); raises ``ValueError`` for a grid that
+    is not the whole group."""
+    if disp < 1 or world % disp:
+        raise ValueError(f"mesh disp={disp} with {world} ranks: the disp axis must divide the group")
+    if data is None:
+        data = world // disp
+    if data * disp != world:
+        raise ValueError(
+            f"mesh data={data} x disp={disp} with {world} ranks: every rank of the group is in the grid, "
+            "so data * disp is the group's size (ecm_tpu may take a subset of its devices; the port does not)"
+        )
+    return data
 
 
 @contextlib.contextmanager
@@ -147,11 +151,14 @@ def active_mesh() -> Mesh | None:
     return getattr(_state, "mesh", None)
 
 
-def reduction_mesh() -> Mesh | None:
-    """The active mesh when its data axis spans more than one rank, else
-    None: one rank's sums are already the global batch's."""
+def reduction_mesh(grid: bool = False) -> Mesh | None:
+    """The active mesh when its data axis (``grid``: its whole grid) spans
+    more than one rank, else None: one rank's sums are already the global
+    batch's."""
     mesh = active_mesh()
-    return mesh if mesh is not None and mesh.data > 1 else None
+    if mesh is None:
+        return None
+    return mesh if (mesh.data * mesh.disp if grid else mesh.data) > 1 else None
 
 
 def disp_mesh() -> Mesh | None:

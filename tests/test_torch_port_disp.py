@@ -28,8 +28,8 @@ and against the port in one process.
 - The ``evaluate`` CLI under ``torch.distributed.run --nproc_per_node 4``
   with ``--multihost --mesh-disp 4 --device cpu`` on a tiny Middlebury
   tree, against one process.
-- What raises: an indivisible ``max_disp``, a grid that is not the group,
-  training on the disparity axis (slice 11).
+- What raises: an indivisible ``max_disp`` (at eval and in training), a
+  grid that is not the group.
 """
 
 import concurrent.futures
@@ -535,18 +535,20 @@ def test_indivisible_max_disp_raises():
 def test_eval_mesh_and_the_grid_are_checked():
     """Without a process group ``eval_mesh`` of the preset raises
     ``ValueError`` (4 ranks needed, 1 present), as ``make_mesh`` does for a
-    grid that is not the group; training with ``--mesh-disp`` above 1 names
-    slice 11."""
+    grid that is not the group, and so does the training mesh
+    (``make_mesh_from``) of a disp axis of 4 over one rank; training under a
+    disp mesh checks ``max_disp`` before any collective
+    (``test_torch_port_disp_train.py`` trains on four ranks)."""
     cfg = CONFIGS["middlebury_disp_sharded"]
     assert cfg.train.mesh_disp == 4
     with pytest.raises(ValueError, match="needs --multihost with 4 ranks, have 1"):
         cli_common.eval_mesh(cfg)
     assert cli_common.eval_mesh(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, mesh_disp=1))) is None
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    with pytest.raises(ValueError, match="mesh disp=4 with 1 ranks: the disp axis must divide the group"):
         cli_common.make_mesh_from(cfg)
-    model = dataclasses.replace(cfg.model, bf16=False).build(device="cpu", max_disp=64, feature_channels=8)
+    model = dataclasses.replace(cfg.model, bf16=False).build(device="cpu", max_disp=48, feature_channels=8)
     model.train()
-    with use_mesh(Mesh(group=None, data=1, rank=0, disp=4)), pytest.raises(NotImplementedError, match="slice 11"):
+    with use_mesh(Mesh(group=None, data=1, rank=0, disp=4)), pytest.raises(ValueError, match="max_disp / 16"):
         model(torch.zeros(1, 32, 64, 3), torch.zeros(1, 32, 64, 3))
 
 

@@ -56,11 +56,11 @@ def test_build_model_without_gpu_raises(monkeypatch):
 
 
 def test_unported_paths_raise(monkeypatch):
-    """What is still to port raises: training on the disparity mesh
-    (``--mesh-disp`` above 1, slice 11 of ROADMAP queue 1, parallel); the
-    eval mesh of slice 10 needs ``--multihost`` with that many ranks. What
-    earlier slices ported runs: the training forward of both models (3 and
-    1 predictions),
+    """Every path is ported; a disparity mesh needs ranks: with one process
+    the eval mesh of ``--mesh-disp`` above 1 needs ``--multihost`` with that
+    many ranks, and the training mesh's grid must be the group (its disp
+    axis does not divide one rank). What earlier slices ported runs: the
+    training forward of both models (3 and 1 predictions),
     the correlation volume with ``use_pallas=True``, and the trainer with
     checkpoints; ``--multihost`` (the data axis) no longer raises
     ``NotImplementedError``: with no GPU and no ``--device`` it refuses the
@@ -81,7 +81,7 @@ def test_unported_paths_raise(monkeypatch):
         cfg = common.resolve_config(common.base_parser("").parse_args(argv), "kitti_infer")
         with pytest.raises(ValueError, match="needs --multihost with .* ranks, have 1"):
             common.eval_mesh(cfg)
-        with pytest.raises(NotImplementedError, match="slice 11 .*ROADMAP queue 1"):
+        with pytest.raises(ValueError, match=r"mesh disp=\d with 1 ranks: the disp axis must divide the group"):
             common.make_mesh_from(cfg)
     assert common.make_mesh_from(CONFIGS["sceneflow_single"]) is None
     assert common.eval_mesh(CONFIGS["kitti_infer"]) is None

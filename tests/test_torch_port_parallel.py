@@ -214,7 +214,7 @@ def heads_bias(k: str) -> bool:
 @pytest.mark.parametrize("name", list(CASES))
 def test_step_gradients_match_jax(group, name):
     """Every gradient after DDP's reduction at max|diff|/max|ref| <= 1e-5
-    per tensor (the f64 case of ``test_torch_port_train.py``); the heads'
+    per tensor (the f64 case of ``test_torch_port_train_loop.py``); the heads'
     conv2 biases below 1e-4 of the largest gradient on both sides."""
     ref, got = group["refs"][name], group["ranks"][name][0][name]
     mapped = from_flax({"params": ref["grads"], "batch_stats": ref["stats"]}, ref["expected"])

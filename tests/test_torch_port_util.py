@@ -61,6 +61,34 @@ def assert_close_rel(a, b, rel: float) -> None:
     assert err <= rel * scale, f"max|diff| {err} > {rel} * max|ref| {scale}"
 
 
+def assert_grads_match(grads: dict, mapped: dict, rel: float) -> None:
+    """Each port gradient against the mapped JAX one at max|diff|/max|ref|
+    <= ``rel``. The heads' conv2 biases shift a cost map uniformly over D,
+    which the soft-argmin ignores: their exact gradient is 0, and both
+    packages must hold them below 1e-4 of the model's largest gradient."""
+    assert set(grads) <= set(mapped)
+    top = max(g.abs().max().item() for g in mapped.values() if g.is_floating_point())
+    for k, g in grads.items():
+        if "classif" in k and k.endswith("conv2.bias"):
+            assert max(g.abs().max().item(), mapped[k].abs().max().item()) <= 1e-4 * top, k
+            continue
+        try:
+            assert_close_rel(g.numpy(), mapped[k].numpy(), rel)
+        except AssertionError as e:
+            raise AssertionError(f"{k}: {e}") from None
+
+
+def assert_stats_match(sd: dict, mapped: dict, rel: float) -> None:
+    """Every BatchNorm running mean and variance at rel ``rel``."""
+    stats = [k for k in sd if k.endswith(("running_mean", "running_var"))]
+    assert len(stats) > 20
+    for k in stats:
+        try:
+            assert_close_rel(sd[k].numpy(), mapped[k].numpy(), rel)
+        except AssertionError as e:
+            raise AssertionError(f"{k}: {e}") from None
+
+
 def jax_train_grads(model, variables: dict, batch: dict, max_disp: int):
     """One training forward and backward of a flax model, as
     ``ecm_tpu.train.steps.make_train_step`` takes it before the optimizer:
