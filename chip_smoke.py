@@ -37,11 +37,12 @@
    reports the median ms per forward. The correlation path also takes
    apart its cost map's difference from the plain path on eight pairs
    (``correlation_witness``).
-3. Profiles a steady window of batch-1 forwards of each ECMStereo path with
-   ``torch.profiler``: device time per kernel, the port's kernels against
-   the rest, and the device's idle share of the window; the grouped path
-   must run the conv core 10 times a forward (4 s1 + 3 down + 3
-   transposed) and the WMMA core it replaced never.
+3. Profiles a steady window of batch-1 forwards of each ECMStereo path
+   under ``ecm_torch.utils.profiling.trace``, read back from the trace file
+   it writes: device time per kernel, the port's kernels against the rest,
+   and the device's idle share of the window; the grouped path must run the
+   conv core 10 times a forward (4 s1 + 3 down + 3 transposed) and the WMMA
+   core it replaced never. Then ``profiling.timed`` of the same forward.
 4. Trains ``CONFIGS["sceneflow_single"]`` (slice 3, ``TRAIN_SLICE``): 4
    pairs at 256x512, max-disp 192, bf16, the grouped dispatch, through
    ``train_loop`` on one fixed synthetic batch, counts 0 just before and
@@ -66,7 +67,10 @@
    disparity computed here with the same weights); and ``test_img
    --synthetic`` as a subprocess with no device flag. It reports the train
    CLI's pairs/s, the DataLoader's own rate, the checkpoint's size and its
-   save and restore times, and the submission's ms a pair.
+   save and restore times, and the submission's ms a pair; and packs the 8
+   pairs' 256x512 crops into two TFRecord shards
+   (``ecm_torch.data.tfrecord``), reads them back equal and reports the
+   host's MB/s each way.
 6. Runs slice 9's data axis (``ecm_torch.parallel``) on the one card. NCCL
    takes one rank a card, so two ranks that share it reduce over gloo, which
    takes CUDA tensors:
@@ -141,7 +145,27 @@
      SceneFlow-layout tree (a finite loss, one checkpoint, rank 0 alone
      printing the mesh), whose checkpoint ``evaluate`` then restores in
      this process.
-9. Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+9. Runs the JAX package's convergence gate (``benchmarks/overfit_gate.py``)
+   through the port's train CLI, ``ecm_torch.cli.train.main(["--config",
+   preset, "--savemodel", dir])`` in-process on cuda:0, for both presets,
+   ``overfit_gate`` (f32) and ``overfit_gate_grouped`` (bf16), each 600
+   steps over 4 fixed synthetic batches of 2 x 128x256. The CLI's
+   ``--maxdisp`` (default 192) overrides the presets' max-disp (48, 64), as
+   ``ecm_tpu``'s CLI does, so both train the grouped dispatch at max-disp
+   192: ``gband_conv_s1`` 7 + 7 launches a step (counts 0 just before and
+   read just after each run). Each must end
+   with an EPE below 2.0 px at step 600 and log only finite losses; it
+   prints the first (step 50) and last logged loss and EPE, the wall time
+   and the median ms a step, beside the TPU's result of
+   ``benchmarks/OVERFIT.json`` as context.
+10. Reports ``ecm_torch.utils.profiling`` on the grouped batch-1
+   ``kitti_infer`` forward: item 3's trace and ``timed`` of the forward
+   beside the serving phase's CUDA-event median; the analytic FLOPs a pair
+   (``flops_stereo_parts``, which over-counts) and the convolutions' FLOPs
+   that ``torch.utils.flop_counter.FlopCounterMode`` counts over one
+   forward of the plain path, each with the TFLOP/s it implies at the
+   grouped path's batch-8 ms a pair.
+11. Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits nonzero without the last line.
@@ -158,6 +182,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -177,7 +202,7 @@ from ecm_torch.cli import submission as cli_submission
 from ecm_torch.cli import train as cli_train
 from ecm_torch.configs import CONFIGS
 from ecm_torch.configs.base import SLICE2_OVERRIDES, SLICE_OVERRIDES, TRAIN_SLICE
-from ecm_torch.data import kitti, make_batch, make_pair, write_pfm
+from ecm_torch.data import kitti, make_batch, make_pair, tfrecord, write_pfm
 from ecm_torch.data.pipeline import PipelineConfig, make_train_pipeline
 from ecm_torch.data.preprocess import unpad
 from ecm_torch.data.sceneflow import list_sceneflow
@@ -195,6 +220,7 @@ from ecm_torch.train.loop import to_device, train_loop
 from ecm_torch.train.loss import stereo_loss
 from ecm_torch.train.state import create_train_state, make_optimizer
 from ecm_torch.train.steps import make_train_step
+from ecm_torch.utils import profiling
 
 B, H, W, MAX_DISP, C = 1, 384, 1248, 192, 32
 D4, H4, W4 = MAX_DISP // 4, H // 4, W // 4
@@ -799,43 +825,50 @@ PORT_SYMBOLS = (
 
 
 def profile_forward(path: str, overrides: dict, runs: int = 3) -> dict:
-    """``runs`` batch-1 forwards under torch.profiler after a warm-up: device
-    time per kernel (ms per forward), the port's kernels against everything
-    else (cuDNN, elementwise, copies), and the idle share of the window (1 -
-    union of device intervals / host wall time, profiler overhead included)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """``runs`` batch-1 forwards under ``ecm_torch.utils.profiling.trace``
+    after a warm-up, read back from the trace file it writes: device time
+    per kernel (ms per forward), the port's kernels against everything else
+    (cuDNN, elementwise, copies), and the idle share of the window (1 -
+    union of device intervals / host wall time, profiler overhead
+    included). Then ``profiling.timed`` of the same forward."""
     model = CONFIGS["kitti_infer"].model.build(generator=torch.Generator().manual_seed(0), **overrides)
     reqs = [pairs(1, 400 + i) for i in range(runs + 1)]
+    logdir = OUT_DIR / "trace" / path
+    shutil.rmtree(logdir, ignore_errors=True)
     with torch.inference_mode():
         model(*reqs[0])
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiling.trace(logdir=str(logdir)):
             t0 = time.perf_counter()
             for left, right in reqs[1:]:
                 model(left, right)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    events = device_events(prof)
+        timed_ms = profiling.timed(model, *reqs[0]) * 1e3
+    (trace_file,) = logdir.glob("*.pt.trace.json")
+    # the kernels and copies (not the annotations the profiler also puts on
+    # the device timeline), in microseconds
+    events = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in json.loads(trace_file.read_text())["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     by_name, port = {}, {}
-    for e in events:
-        ms = (e.time_range.end - e.time_range.start) / 1e3
-        by_name[e.name] = by_name.get(e.name, 0.0) + ms
-        label = next((lab for sym, lab in PORT_SYMBOLS if sym in e.name), "other")
+    for name, start, stop in events:
+        ms = (stop - start) / 1e3
+        by_name[name] = by_name.get(name, 0.0) + ms
+        label = next((lab for sym, lab in PORT_SYMBOLS if sym in name), "other")
         port[label] = port.get(label, 0.0) + ms
     busy_us, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+    for start, stop in sorted(e[1:] for e in events):
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     del model
     torch.cuda.empty_cache()
     return dict(
-        path=path, runs=runs, device_events=len(events),
-        pair_kernels={sym: sum(sym in e.name for e in events) for sym in (PAIR_MMA, PAIR_CORES)},
-        conv_kernels={sym: sum(sym in e.name for e in events) for sym in (CONV_WGMMA, OLD_CONV_MMA)},
+        path=path, runs=runs, device_events=len(events), trace_file=str(trace_file.relative_to(OUT_DIR)),
+        pair_kernels={sym: sum(sym in e[0] for e in events) for sym in (PAIR_MMA, PAIR_CORES)},
+        conv_kernels={sym: sum(sym in e[0] for e in events) for sym in (CONV_WGMMA, OLD_CONV_MMA)},
         wall_ms_per_forward=wall_ms / runs, device_busy_ms_per_forward=busy_us / 1e3 / runs,
-        idle_share=1 - busy_us / 1e3 / wall_ms if events else None,
+        idle_share=1 - busy_us / 1e3 / wall_ms if events else None, timed_ms=timed_ms,
         ms_per_forward_by_group={k: v / runs for k, v in sorted(port.items(), key=lambda kv: -kv[1])},
         top_kernels_ms_per_forward=[(k[:90], v / runs) for k, v in top],
     )
@@ -1107,6 +1140,26 @@ def loader_rate(specs: list, batches: int = 24) -> dict:
     return dict(workers=data.workers, first_batch_s=t1 - t0, pairs_per_s=batches * data.global_batch / (t2 - t1))
 
 
+def tfrecord_rate(specs: list, root: Path) -> dict:
+    """The SceneFlow-layout pairs as the train preset's crops (seeded),
+    packed into two TFRecord shards by ``ecm_torch.data.tfrecord`` and read
+    back, equal bit for bit: the host's MB/s each way (files in the page
+    cache; no gate)."""
+    rng = np.random.default_rng(0)
+    samples = [sceneflow_load_sample(s, CONFIGS[TRAIN_SLICE].data.crop, rng) for s in specs]
+    t0 = time.perf_counter()
+    paths = tfrecord.write_shards(iter(samples), str(root / "tfrecord"), samples_per_shard=len(samples) // 2)
+    t1 = time.perf_counter()
+    back = list(tfrecord.read_shards(paths))
+    t2 = time.perf_counter()
+    if len(paths) != 2 or len(back) != len(samples) or not all(
+            np.array_equal(a[k], b[k]) for a, b in zip(samples, back) for k in ("left", "right", "disparity")):
+        raise AssertionError(f"tfrecord: {len(paths)} shards, {len(back)} of {len(samples)} records read back equal")
+    size = sum(os.path.getsize(p) for p in paths)
+    return dict(shards=len(paths), records=len(back), bytes=size, write_s=t1 - t0, read_s=t2 - t1,
+                write_mb_s=size / (t1 - t0) / 1e6, read_mb_s=size / (t2 - t1) / 1e6)
+
+
 def checkpoint_times(ck: str, repeats: int = 3) -> dict:
     """The size of the newest checkpoint in ``ck``, and the median time to
     restore it into a fresh ``kitti_infer`` state on the card and to save
@@ -1189,6 +1242,7 @@ def cli_phase(card: str, root: Path) -> dict:
     runs["cli_train"]["logged"] = logged[0]
     runs["cli_train_resume"]["logged"] = logged[1]
     loader = loader_rate(specs)
+    records = tfrecord_rate(specs, root)
 
     runs["cli_finetune"], out = drive("finetune", cli_finetune, [
         "--datapath", kt, "--loadmodel", ck, "--steps", str(CLI_FINETUNE_STEPS), "--batch", "4",
@@ -1232,12 +1286,16 @@ def cli_phase(card: str, root: Path) -> dict:
         f"{CLI_TRAIN_STEPS + 1}-{CLI_RESUME_STEPS} (batch {pairs}, start-up included) [{card}]")
     log(f"phase cli: DataLoader alone {loader['pairs_per_s']:.2f} pairs/s with {loader['workers']} workers, "
         f"first batch after {loader['first_batch_s']:.2f} s [{card}]")
+    log(f"phase cli: TFRecord ({records['records']} crops of {CONFIGS[TRAIN_SLICE].data.crop}, "
+        f"{records['shards']} shards, {records['bytes']} bytes) write {records['write_mb_s']:.1f} MB/s, read "
+        f"{records['read_mb_s']:.1f} MB/s (host) [{card}]")
     log(f"phase cli: checkpoint {ckpt['bytes']} bytes, save {ckpt['save_ms']:.1f} ms, restore "
         f"{ckpt['restore_ms']:.1f} ms (median of 3) [{card}]")
     log(f"phase cli: submission {runs['cli_submission']['ms_per_pair']:.2f} ms a pair (median of "
         f"{CLI_KITTI_PAIRS}, host arrays to host disparity) [{card}]")
     log(f"phase cli: wall {wall:.1f} s [{card}]")
-    return dict(card=card, runs=runs, loader=loader, checkpoint=ckpt, wall_s=wall, trees=(sf, kt))
+    return dict(card=card, runs=runs, loader=loader, tfrecord=records, checkpoint=ckpt, wall_s=wall,
+                trees=(sf, kt))
 
 
 # the parallel phase (slice 9): the data axis on the one card
@@ -1821,6 +1879,103 @@ def disp_train_phase(card: str, gen, batch: dict, start: dict, ref: dict, sf: st
                 group_wall_s=group_wall, wall_s=wall, **compared)
 
 
+# the overfit phase (slice 12): the JAX package's convergence gate
+# (benchmarks/overfit_gate.py) through the port's train CLI
+OVERFIT_PRESETS = ("overfit_gate", "overfit_gate_grouped")
+OVERFIT_EPE_PX = 2.0  # benchmarks/overfit_gate.py:31
+# the TPU's step-50 and step-600 EPE (benchmarks/OVERFIT.json), printed as
+# context only: the reference's result, not a number of the port
+OVERFIT_TPU_EPE = {"overfit_gate": (3.9488, 0.1414), "overfit_gate_grouped": (5.8788, 0.1614)}
+
+
+def overfit_phase(card: str, root: Path) -> dict:
+    """Both gate presets through ``ecm_torch.cli.train`` for their 600
+    steps over 4 fixed synthetic batches (see the module's docstring, item
+    10): the launch counts set to 0 just before and read just after each
+    run, the step-600 EPE below ``OVERFIT_EPE_PX`` and every logged loss
+    finite."""
+    t_phase = time.perf_counter()
+    out = {}
+    for preset in OVERFIT_PRESETS:
+        # the preset as the CLI resolves it: --maxdisp (default 192) sets
+        # max_disp over the preset's, in both packages
+        # (ecm_tpu/cli/common.py:75), so "auto" is the grouped dispatch,
+        # whose 7 + 7 gband_conv_s1 launches a step drive holds each run to
+        cfg = cli_common.resolve_config(cli_common.base_parser("").parse_args(["--config", preset]), preset)
+        steps = cfg.train.num_steps
+        ck = root / f"ck_{preset}"
+        run, _ = drive(preset, cli_train, ["--config", preset, "--savemodel", str(ck)], _steps(steps))
+        rows = [json.loads(line) for line in Path(ck, "metrics.jsonl").read_text().splitlines()]
+        first, last = rows[0], rows[-1]
+        if last["step"] != steps or not all(math.isfinite(r["loss"]) for r in rows):
+            raise AssertionError(f"overfit {preset}: logged {[(r['step'], r['loss']) for r in rows]}")
+        per_step = {k: v / steps for k, v in run["launches"].items() if v}
+        out[preset] = dict(
+            run, max_disp=cfg.model.max_disp, bf16=cfg.model.bf16, first={k: first[k] for k in ("step", "loss", "epe")},
+            last={k: last[k] for k in ("step", "loss", "epe")},
+            epe_by_step={r["step"]: r["epe"] for r in rows},
+            ms_per_step_median=statistics.median(r["step_time_ms"] for r in rows),
+            launches_per_step=per_step, gate_epe_px=OVERFIT_EPE_PX,
+        )
+        tpu = OVERFIT_TPU_EPE[preset]
+        log(f"phase overfit: {preset} ({cfg.model.max_disp} disparities, the preset's {CONFIGS[preset].model.max_disp} "
+            f"overridden by --maxdisp's default; {'bf16' if cfg.model.bf16 else 'f32'}, "
+            f"grouped): step {first['step']} loss {first['loss']:.4f} EPE "
+            f"{first['epe']:.4f} px, step {last['step']} loss {last['loss']:.4f} EPE {last['epe']:.4f} px (gate < "
+            f"{OVERFIT_EPE_PX}); {run['wall_s']:.1f} s, {out[preset]['ms_per_step_median']:.2f} ms a step (median "
+            f"of {len(rows)} logged windows), launches a step {per_step} [{card}]; the TPU's result, for "
+            f"context: EPE {tpu[0]} -> {tpu[1]} px (benchmarks/OVERFIT.json)")
+        if not last["epe"] < OVERFIT_EPE_PX:
+            raise AssertionError(f"overfit {preset}: step-{steps} EPE {last['epe']} px, not below {OVERFIT_EPE_PX}")
+        shutil.rmtree(ck)
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def profiling_phase(card: str, served: dict, profiled: dict) -> dict:
+    """``ecm_torch.utils.profiling`` on the card (see the module's
+    docstring, item 10): the grouped path's profiled window (``trace`` and
+    ``timed``, ``profile_forward``) beside the serving median, and the
+    formula's FLOPs against ``FlopCounterMode``'s."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    t_phase = time.perf_counter()
+    parts = profiling.flops_stereo_parts(H, W, MAX_DISP, num_heads=1, regress_mode="fused")
+    plain = CONFIGS["kitti_infer"].model.build(generator=torch.Generator().manual_seed(0), **PLAIN)
+    with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+        plain(*pairs(1, 600))
+    counts = counter.get_flop_counts()
+    convs = {k.split(".", 1)[-1]: v.get(torch.ops.aten.convolution, 0) / 1e9 for k, v in counts.items()
+             if k in ("Global", "ECMStereo.feature", "ECMStereo.aggregation")}
+    hg_deconv = sum(counts[f"ECMStereo.aggregation.hourglass{i}.conv{k}"].get(torch.ops.aten.convolution, 0)
+                    for i in (1, 2, 3) for k in (5, 6)) / 1e9
+    del plain
+    torch.cuda.empty_cache()
+    formula_gf, counter_gf = sum(parts.values()) / 1e9, convs["Global"]
+    ms_pair = served["ms_per_pair_b8"]
+    conv = profiled["conv_kernels"][CONV_WGMMA] / profiled["runs"]
+    out = dict(
+        card=card, trace_file=profiled["trace_file"], trace_device_events=profiled["device_events"],
+        conv_core_per_forward=conv, timed_ms=profiled["timed_ms"], event_median_ms=served["ms_per_forward_b1"],
+        formula_gflop_per_pair=formula_gf, formula_parts_gflop={k: v / 1e9 for k, v in parts.items()},
+        counter_conv_gflop_per_pair=counter_gf, counter_gflop_by_module=convs, counter_deconv5_6_gflop=hg_deconv,
+        formula_over_counter=formula_gf / counter_gf, ms_per_pair_b8=ms_pair,
+        formula_tflop_s=formula_gf / ms_pair, counter_tflop_s=counter_gf / ms_pair,
+    )
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase profiling: trace of {profiled['runs']} grouped batch-1 forwards in {out['trace_file']}: "
+        f"{profiled['device_events']} device events, {CONV_WGMMA} {conv:g} a forward [{card}]")
+    log(f"phase profiling: timed {profiled['timed_ms']:.2f} ms a forward (mean of 10 after 2, one pair) against "
+        f"the serving phase's CUDA-event median {served['ms_per_forward_b1']:.2f} ms [{card}]")
+    log(f"phase profiling: FLOPs a pair at 384x1248, max-disp 192, one head: the formula "
+        f"(flops_stereo_parts, over-counts: ecm_tpu/utils/profiling.py:56-63, :76, :82-83) {formula_gf:.1f} GF, "
+        f"{out['formula_tflop_s']:.1f} TFLOP/s at the grouped batch-8 {ms_pair:.3f} ms a pair; FlopCounterMode "
+        f"over the plain path's convolutions {counter_gf:.1f} GF (features {convs['feature']:.1f}, aggregation "
+        f"{convs['aggregation']:.1f}, of which the transposed convs {hg_deconv:.1f}), {out['counter_tflop_s']:.1f} "
+        f"TFLOP/s; formula / counter {out['formula_over_counter']:.3f} [{card}]")
+    return out
+
+
 def _grad_summary(r: dict) -> str:
     return ", ".join(f"{n.replace('aggregation.', '').replace('.weight', '')} ({c:.5f}, {r['grad_norm_ratio'][n]:.4f})"
                      for n, c in r["grad_cosine"].items())
@@ -1882,10 +2037,11 @@ def main() -> int:
     }
     for path, result in paths.items():
         log(f"phase serving {path} [{card}]: " + json.dumps(result))
+    profiled = {}
     for path, overrides, pairs_per_forward in (
         ("slice2_grouped", SLICE2_OVERRIDES, 1), ("slice1_standard", SLICE_OVERRIDES, 3),
     ):
-        prof = profile_forward(path, overrides)
+        prof = profiled[path] = profile_forward(path, overrides)
         log(f"phase profile {path} [{card}]: " + json.dumps(prof))
         # the paths' pairs run on the tensor cores: the new kernel's symbol
         # once per launch, the CUDA-core kernel's never
@@ -1907,6 +2063,10 @@ def main() -> int:
         log("phase disp [" + card + "]: " + json.dumps(disp))
         dtrain = disp_train_phase(card, gen, par_global, par_start, par_ref, *cli["trees"])
         log("phase disp_train [" + card + "]: " + json.dumps(dtrain))
+        overfit = overfit_phase(card, Path(tmp))
+        log("phase overfit [" + card + "]: " + json.dumps(overfit))
+    prof = profiling_phase(card, paths["slice2_grouped"], profiled["slice2_grouped"])
+    log("phase profiling [" + card + "]: " + json.dumps(prof))
     paths.update(cli["runs"])
     paths["parallel_" + PAR_CONFIG] = par
     paths["parallel_nccl_evaluate"] = par["nccl"]["evaluate"]
@@ -1914,6 +2074,8 @@ def main() -> int:
     paths["disp_evaluate_one_process"] = disp["cli"]["one_process_cli"]
     paths["disp_train_" + PAR_CONFIG + "_rank0"] = dtrain
     paths["disp_train_evaluate"] = dtrain["cli"]["evaluate"]
+    for preset in OVERFIT_PRESETS:
+        paths["overfit_" + preset] = overfit[preset]
     # launches: each kernel's count on its main path (the grouped serving
     # path runs the six slice-1/2 kernels, basic_correlation the correlation
     # kernel, the train path gband_conv_s1: forwards + input gradients)

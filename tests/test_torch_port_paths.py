@@ -5,7 +5,12 @@ fusions and the correlation volume, each through the port's plain, grouped
 and fused eval paths (every wrapper's plain version on the CPU), and
 ``regress_mode="lowres"`` with each of them. The JAX reference runs its
 plain standard path: its layouts share one parameter tree and compute one
-function."""
+function.
+
+The ``film`` and ``both`` cases run from ``test_torch_port_paths_fusion.py``
+through this file's ``check_option`` and ``check_lowres``: the module-scoped
+JAX models of the five cases then compile in two test processes.
+"""
 
 import jax
 import jax.numpy as jnp
@@ -18,18 +23,22 @@ from ecm_tpu.models.ecm import regress_disparity as jax_regress_disparity
 from ecm_torch.configs import CONFIGS
 from ecm_torch.configs.base import SLICE2_OVERRIDES, SLICE_OVERRIDES
 from ecm_torch.weights import load_flax
-from test_torch_port_util import assert_close_rel, flax_variables, t
+from test_torch_port_util import assert_close_rel, flax_variables, t, torch_threads
 
 SMALL = dict(max_disp=64, feature_channels=8)
 PLAIN = dict(agg_layout="standard", agg_fused="off", use_pallas=False, regress_mode="fullres")
 CASES = {
     "context_stages_0_2": dict(context_stages=(0, 2)),
     "num_hourglass_2": dict(num_hourglass=2),
-    "film": dict(context_fusion="film"),
-    "both": dict(context_fusion="both"),
     "correlation": dict(cost_mode="correlation"),
 }
 PATHS = {"plain": PLAIN, "grouped": SLICE2_OVERRIDES, "fused": SLICE_OVERRIDES}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -62,17 +71,16 @@ def port_model(variables, **kw):
     return load_flax(tm, variables)
 
 
-@pytest.mark.parametrize("path", list(PATHS))
-def test_option_matches_jax_on_each_eval_path(images, jax_case, path):
+def check_option(option: dict, images, jax_result, path: str) -> None:
     """Cost map at rel 1e-4, disparity at 1e-3 px, as the preset's paths
     (``test_torch_port_model.py``, ``test_torch_port_grouped.py``)."""
-    case, (variables, j_cost, j_disp) = jax_case
-    tm = port_model(variables, **PATHS[path], **CASES[case])
+    variables, j_cost, j_disp = jax_result
+    tm = port_model(variables, **PATHS[path], **option)
     agg = tm.aggregation
     assert (agg.context_stages, agg.num_hourglass, agg.context_fusion) == (
-        tuple(CASES[case].get("context_stages", (0, 1, 2, 3))),
-        CASES[case].get("num_hourglass", 3),
-        CASES[case].get("context_fusion", "add"),
+        tuple(option.get("context_stages", (0, 1, 2, 3))),
+        option.get("num_hourglass", 3),
+        option.get("context_fusion", "add"),
     )
     with torch.inference_mode():
         (cost,) = tm.cost_maps(*map(t, images))
@@ -82,15 +90,26 @@ def test_option_matches_jax_on_each_eval_path(images, jax_case, path):
     np.testing.assert_allclose(disp.numpy(), j_disp, rtol=0, atol=1e-3)
 
 
-def test_lowres_regression_matches_jax(images, jax_case):
+def check_lowres(option: dict, images, jax_result) -> None:
     """``regress_mode="lowres"`` at model level (D-only upsample, soft-argmin
     at 1/4 resolution, bilinear upsample of the disparity) against JAX's
     ``regress_disparity`` on JAX's cost map, as its ``ECMStereo`` applies
     it: 1e-3 px."""
-    case, (variables, j_cost, _) = jax_case
+    variables, j_cost, _ = jax_result
     j_disp = np.asarray(jax_regress_disparity(jnp.asarray(j_cost), SMALL["max_disp"], 32, 64, "lowres", False))
-    tm = port_model(variables, **{**PLAIN, "regress_mode": "lowres"}, **CASES[case])
+    tm = port_model(variables, **{**PLAIN, "regress_mode": "lowres"}, **option)
     with torch.inference_mode():
         (disp,) = tm(*map(t, images))
     assert disp.shape == (1, 32, 64)
     np.testing.assert_allclose(disp.numpy(), j_disp, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_option_matches_jax_on_each_eval_path(images, jax_case, path):
+    case, result = jax_case
+    check_option(CASES[case], images, result, path)
+
+
+def test_lowres_regression_matches_jax(images, jax_case):
+    case, result = jax_case
+    check_lowres(CASES[case], images, result)

@@ -36,10 +36,20 @@ from test_torch_port_util import (
     assert_stats_match,
     flax_variables,
     jax_train_grads,
+    torch_threads,
     torch_train_grads,
 )
 
 PLAIN = dict(use_pallas=False, regress_mode="fullres")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Six loaded test processes share the cores (``torch_threads``)."""
+    with torch_threads(1):
+        yield
+
+
 # name, model kwargs (both packages), port-only kwargs, crop max disparity
 MODELS = {
     # grouped at width 32: JAX's GConv3D takes gband_conv_s1 (4 * 32 lanes)

@@ -41,10 +41,18 @@ from test_torch_port_util import (
     flax_variables,
     jax_train_grads,
     t,
+    torch_threads,
     torch_train_grads,
 )
 
 PLAIN = dict(use_pallas=False, regress_mode="fullres")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Six loaded test processes share the cores (``torch_threads``)."""
+    with torch_threads(1):
+        yield
 
 
 def test_train_step_f64_spp_and_relu_match_jax():
