@@ -12,9 +12,12 @@
    kernel's and cuDNN's device time (torch.profiler) and the plan
    (``cuda_gband.conv_plan``); for the regression and the correlation
    volume the device time by symbol (and the regression's plan,
-   ``regression_plan``). The build fails on a ptxas spill in any
-   instantiation of the conv core, of the pair's tensor-core kernel, of the
-   regression or of the correlation kernel. Both cost-volume kernels are
+   ``regression_plan``); for the fused pair (``csrc/fused_conv3d_pair.cu``'s
+   wgmma kernel, tiled by ``cuda_fused_agg.pair_plan``) its device time and
+   the cuDNN chain's beside the events. The build fails on a ptxas spill in
+   any instantiation of the conv core, of the pair's wgmma kernel, of the
+   regression or of the correlation kernel, and on a C7520 or C7514 warning
+   (wgmma serialised) in the pair's source. Both cost-volume kernels are
    also held over a first, an interior and a last rank's range of
    disparities (``d_start``) of the ``disp`` phase's volume, against their
    plain versions and the same planes of the whole volume: concat bit for
@@ -42,7 +45,10 @@
    it writes: device time per kernel, the port's kernels against the rest,
    and the device's idle share of the window; the grouped path must run the
    conv core 10 times a forward (4 s1 + 3 down + 3 transposed) and the WMMA
-   core it replaced never. Then ``profiling.timed`` of the same forward.
+   core it replaced never, and each path the pair's wgmma kernel once per
+   pair launch (grouped 1, standard 3), its CUDA-core kernel and the
+   mma.sync kernel it replaced never. Then ``profiling.timed`` of the same
+   forward.
 4. Trains ``CONFIGS["sceneflow_single"]`` (slice 3, ``TRAIN_SLICE``): 4
    pairs at 256x512, max-disp 192, bf16, the grouped dispatch, through
    ``train_loop`` on one fixed synthetic batch, counts 0 just before and
@@ -393,22 +399,24 @@ def _pair_inputs(gen, form: str):
 
 
 def check_fused_pair(gen) -> dict:
-    """The pair in its three main-path forms: each on the tensor-core route
+    """The pair in its three main-path forms: each on the wgmma route
     (``pair_plan``, and the route's launch count), against its plain
-    version; its route, stage-1 recompute factor, blocks and shared memory
-    beside the times."""
+    version; its plan (tile, items, blocks, ring, k1 resident, shared
+    memory, stage-1 recompute) beside the times: the kernel's by events and
+    device time, the cuDNN chain's by events and device time."""
     forms = []
     for form in ("dres0", "dres1", "classif3"):
         args, opts = _pair_inputs(gen, form)
         x, k1, _, _, k2, _, _, ctx = args
-        plan = pairk.pair_plan(x.dtype, *x.shape, k1.shape[0], k2.shape[0])
-        if plan.route != "tensor_cores":
+        plan = pairk.pair_plan(x.dtype, *x.shape, k1.shape[0], k2.shape[0],
+                               torch.cuda.get_device_properties(0).multi_processor_count)
+        if plan.route != "wgmma":
             raise AssertionError(f"fused_conv3d_pair[{form}] plans the {plan.route} route")
-        before = pairk.fused_conv3d_pair.route_launches["tensor_cores"]
+        before = pairk.fused_conv3d_pair.route_launches["wgmma"]
         out = pairk.fused_conv3d_pair(*args, **opts)
         torch.cuda.synchronize()
-        if pairk.fused_conv3d_pair.route_launches["tensor_cores"] != before + 1:
-            raise AssertionError(f"fused_conv3d_pair[{form}] did not launch the tensor-core kernel")
+        if pairk.fused_conv3d_pair.route_launches["wgmma"] != before + 1:
+            raise AssertionError(f"fused_conv3d_pair[{form}] did not launch the wgmma kernel")
         ref = pairk.fused_conv3d_pair_torch(*args, **opts)
         err = (out.float() - ref.float()).abs().max().item()
         rel = err / ref.float().abs().max().item()
@@ -418,22 +426,22 @@ def check_fused_pair(gen) -> dict:
         flops = 2 * 27 * vox * (k1.shape[1] * k1.shape[0] + k2.shape[1] * k2.shape[0])
         bound_ms, by = bound(flops, PEAK_BF16_FLOPS, nbytes(x, ctx, out) + 2 * (k1.numel() + k2.numel()))
         xcf, w1, w2 = x.movedim(-1, 1), k1.bfloat16(), k2.bfloat16()
+
+        def chain(xcf=xcf, w1=w1, w2=w2):  # yardstick: the two cuDNN convolutions, no epilogues
+            return F.conv3d(F.conv3d(xcf, w1, padding=1), w2, padding=1)
+
         forms.append(dict(
-            form=form, route=plan.route, tile=plan.tile, blocks=plan.blocks, smem_bytes=plan.smem_bytes,
-            recompute=plan.recompute, max_abs_err=err, rel_err=rel, gflop=flops / 1e9,
+            form=form, route=plan.route, plan=plan._asdict(), max_abs_err=err, rel_err=rel, gflop=flops / 1e9,
             ms=time_ms(lambda: pairk.fused_conv3d_pair(*args, **opts)),
-            device_ms=device_ms(lambda: pairk.fused_conv3d_pair(*args, **opts), PAIR_MMA),
+            device_ms=device_ms(lambda: pairk.fused_conv3d_pair(*args, **opts), PAIR_WGMMA),
             plain_ms=time_ms(lambda: pairk.fused_conv3d_pair_torch(*args, **opts)),
-            # yardstick: the two cuDNN convolutions alone, without the epilogues
-            library_ms=time_ms(lambda: torch.nn.functional.conv3d(
-                torch.nn.functional.conv3d(xcf, w1, padding=1), w2, padding=1)),
+            library_ms=time_ms(chain), library_device_ms=device_total_ms(chain),
             bound_ms=bound_ms, bound_by=by,
         ))
         f = forms[-1]
-        log(f"  fused_conv3d_pair[{form}]: {plan.route}, tile {plan.tile}, {plan.blocks} blocks, "
-            f"{plan.smem_bytes} B shared, stage-1 recompute {plan.recompute:.3f}; rel err {rel:.3e}, "
-            f"{f['ms']:.3f} ms (device {f['device_ms']:.3f}; plain {f['plain_ms']:.3f}, "
-            f"cuDNN convs {f['library_ms']:.3f}, bound {bound_ms:.4f}, {flops / f['ms'] / 1e9:.1f} TFLOP/s)")
+        log(f"  fused_conv3d_pair[{form}]: {plan}; rel err {rel:.3e}, {f['ms']:.3f} ms (device "
+            f"{f['device_ms']:.3f}, {flops / f['device_ms'] / 1e9:.1f} TFLOP/s; plain {f['plain_ms']:.3f}; "
+            f"cuDNN convs {f['library_ms']:.3f}, device {f['library_device_ms']:.3f}; bound {bound_ms:.4f})")
     total = {k: sum(f[k] for f in forms) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return dict(
         name="fused_conv3d_pair", route="cuda", source="ecm_torch/csrc/fused_conv3d_pair.cu",
@@ -801,24 +809,25 @@ def serve(path: str, name: str, overrides: dict, per_forward: dict, batch8: bool
 # the port's kernels by symbol, in matching order: the conv core's
 # transposed mode is conv3d_wgmma_kernel<0, ...>, and deconv3d_bn_kernel
 # contains conv3d_bn_kernel; the pair's tensor-core kernel is
-# fused_pair_mma_kernel, its CUDA-core kernel fused_pair_kernel.
+# fused_pair_wgmma_kernel, its CUDA-core kernel fused_pair_kernel, and the
+# mma.sync kernel it replaced (PAIR_OLD_MMA) must be in no profile.
 # OLD_CONV_MMA is the WMMA core that conv_wgmma.cuh replaced: no profile may
 # hold it.
-PAIR_MMA, PAIR_CORES = "fused_pair_mma_kernel", "fused_pair_kernel"
+PAIR_WGMMA, PAIR_CORES, PAIR_OLD_MMA = "fused_pair_wgmma_kernel", "fused_pair_kernel", "fused_pair_mma_kernel"
 REGRESSION, CORRELATION = "upsample_softargmin_kernel", "correlation_kernel"
 CONV_WGMMA, OLD_CONV_MMA = "conv3d_wgmma_kernel", "conv3d_mma_kernel"
 # kernels none of whose instantiations may spill: source -> (symbol, count).
-# The conv core: (modes) x Cout_pad 16, 32, 64; the tensor-core pair: one per
-# Cout_pad / 8; the regression: f32, bf16; the correlation: f32, bf16 x C
+# The conv core: (modes) x Cout_pad 16, 32, 64; the pair: output rows a tile 2
+# x N2 8, 16, 32, and 4 x N2 8; the regression: f32, bf16; the correlation: f32, bf16 x C
 # padded to 8, 16, 32, 64
 NO_SPILL = {
-    "conv3d_bn": (CONV_WGMMA, 6), "deconv3d_bn": (CONV_WGMMA, 3), "fused_conv3d_pair": (PAIR_MMA, 4),
+    "conv3d_bn": (CONV_WGMMA, 6), "deconv3d_bn": (CONV_WGMMA, 3), "fused_conv3d_pair": (PAIR_WGMMA, 4),
     "regression": (REGRESSION, 2), "cost_volume": (CORRELATION, 8),
 }
 PORT_SYMBOLS = (
     (f"{CONV_WGMMA}<0", "deconv3d_bn"), (CONV_WGMMA, "conv3d_bn"),
     ("deconv3d_bn_kernel", "deconv3d_bn"), ("conv3d_bn_kernel", "conv3d_bn"),
-    (PAIR_MMA, "fused_conv3d_pair"), (PAIR_CORES, "fused_conv3d_pair (CUDA cores)"),
+    (PAIR_WGMMA, "fused_conv3d_pair"), (PAIR_CORES, "fused_conv3d_pair (CUDA cores)"),
     ("concat_kernel", "cost_volume_concat"),
     (REGRESSION, "fused_upsample_softargmin"),
 )
@@ -865,7 +874,7 @@ def profile_forward(path: str, overrides: dict, runs: int = 3) -> dict:
     torch.cuda.empty_cache()
     return dict(
         path=path, runs=runs, device_events=len(events), trace_file=str(trace_file.relative_to(OUT_DIR)),
-        pair_kernels={sym: sum(sym in e[0] for e in events) for sym in (PAIR_MMA, PAIR_CORES)},
+        pair_kernels={sym: sum(sym in e[0] for e in events) for sym in (PAIR_WGMMA, PAIR_CORES, PAIR_OLD_MMA)},
         conv_kernels={sym: sum(sym in e[0] for e in events) for sym in (CONV_WGMMA, OLD_CONV_MMA)},
         wall_ms_per_forward=wall_ms / runs, device_busy_ms_per_forward=busy_us / 1e3 / runs,
         idle_share=1 - busy_us / 1e3 / wall_ms if events else None, timed_ms=timed_ms,
@@ -2007,6 +2016,13 @@ def main() -> int:
             log(f"  {symbol} {fn}: {r}")
         if len(found) != count or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in found.values()):
             raise AssertionError(f"{symbol} in {src}: ptxas report {found}")
+    # ptxas serialises the wgmmas of a kernel where a branch around them is
+    # not provably warp-uniform (C7520) or where other instructions may read
+    # their accumulators before a wait (C7514)
+    serialised = [line for line in logs.get("fused_conv3d_pair", "").splitlines()
+                  if "C7520" in line or "C7514" in line]
+    if serialised:
+        raise AssertionError(f"fused_conv3d_pair: {serialised}")
     log(f"phase build: {len(logs)} kernels compiled in {time.time() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2043,9 +2059,9 @@ def main() -> int:
     ):
         prof = profiled[path] = profile_forward(path, overrides)
         log(f"phase profile {path} [{card}]: " + json.dumps(prof))
-        # the paths' pairs run on the tensor cores: the new kernel's symbol
-        # once per launch, the CUDA-core kernel's never
-        if prof["pair_kernels"] != {PAIR_MMA: pairs_per_forward * prof["runs"], PAIR_CORES: 0}:
+        # the paths' pairs run on the wgmma route: its kernel once per
+        # launch, the CUDA-core kernel and the old mma.sync kernel never
+        if prof["pair_kernels"] != {PAIR_WGMMA: pairs_per_forward * prof["runs"], PAIR_CORES: 0, PAIR_OLD_MMA: 0}:
             raise AssertionError(f"{path}: pair kernels in the profile {prof['pair_kernels']}")
         # the grouped path's convs run the conv core: 4 s1 + 3 down + 3 transposed
         convs = 10 if path == "slice2_grouped" else 0

@@ -16,40 +16,66 @@
 // 1,437,696 voxels) dres0 (64->32->32) is 238.5 GFLOP, dres1 (32->32->32)
 // 159.0 GFLOP and the classifier (32->32->1) 82.0 GFLOP: 0.241 / 0.161 /
 // 0.083 ms at 989 TFLOP/s dense bf16, against 276 MB or less of traffic
-// (0.082 ms at 3.35 TB/s).
+// (0.082 ms at 3.35 TB/s). Stage 1 is most of the work (79.5 of the
+// classifier's 82.0 GFLOP), and it is recomputed over the tile's halo.
 //
 // Two routes, chosen by the wrapper (ops/cuda_fused_agg.py, pair_route):
 //
-// 1. fused_pair_mma_kernel, the tensor cores: bf16, Cin % 8 == 0, Cm == 32,
+// 1. fused_pair_wgmma_kernel, the tensor cores: bf16, Cin % 8 == 0, Cm == 32,
 //    Cout == 1 or a multiple of 8 up to 32 (every form a path of the port
-//    launches). Both stages are implicit GEMMs on mma.sync m16n8k16 (bf16 in,
-//    f32 accumulate) with operands read by ldmatrix from shared memory:
-//    stage 1 M = the 10x18 = 180 y positions of an 8x16 (H, W) tile and its
-//    halo (12 m-tiles, rows 180..191 repeat row 179 and are dropped), N = 32,
-//    K = 27 x Cin; stage 2 M = the tile's 128 outputs (one tile row of 16 per
-//    warp), N = Cout padded to 8 (the classifier wastes 7/8 of a 2.5 GFLOP
-//    stage: cheaper than a CUDA-core stage 2 beside tensor-core stage 1),
-//    K = 27 x 32, its A operand read straight from the y ring.
-//    A block owns one tile and marches along a slab of SD output planes in D
-//    (SD = D / ceil(D / 16) rounded up): each step computes one new y plane
-//    into a ring of three, then one output plane from the ring. Stage 1's
-//    recompute is 180/128 x (SD + 2)/SD = 1.58 at SD = 16 (the CUDA-core
-//    route's 4x8x16 tile: 2.11). x and k1 stream through a two-stage
-//    cp.async ring, one stage per (kd, 32 input channels): an x plane of the
-//    12x20 tile, zero-filled outside the volume and past Cin, and that kd's
-//    9 taps of k1; the next stage's copies are in flight during the current
-//    stage's MMAs. k2 is loaded once per block. Every operand row is 32 bf16
-//    at a pitch of 40 (80 bytes: the eight rows of an ldmatrix hit distinct
-//    banks). 256 threads, 8 warps: stage 1 splits 4 (m) x 2 (n), 3 m-tiles x
-//    2 n-tiles a warp. The f32 epilogue (scale, bias, ReLU, then ctx and the
-//    residual) stores each thread's channel pairs from the accumulator
-//    registers (4 bytes; a staging pass for 16-byte rows would cost 18 KB of
-//    shared memory and a barrier, for 2-4 % of the bytes the kernel moves).
-//    Shared memory per block (bf16): x 2 x 240 x 40 + k1 2 x 9 x 32 x 40
-//    (84,480 B) + y 3 x 180 x 40 (43,200 B) + k2 27 x Cout_pad x 40:
-//      dres0 (Cin 64, two stages per kd) and dres1, Cout 32: 196,800 B
-//      classif3, Cout 1 -> 8:                               144,960 B
-//    of the 232,448 a block may have; one block per SM, 720 blocks at B=1.
+//    launches). Built from the parts of the conv core (conv_wgmma.cuh, PTX in
+//    wgmma.cuh):
+//    - Both stages are wgmma.mma_async m64nNk16 with both operands read from
+//      shared memory through descriptors: stage 1 N = 32 (y's channels), K =
+//      27 x Cin; stage 2 N = Cout padded to 8, 16 or 32 (the classifier's
+//      8 is wgmma's smallest N), K = 27 x 32. M = 64 consecutive positions
+//      along W.
+//    - The halo against M = 64: a tile is TH output rows (H) of 62 columns
+//      (W). Stage 1 computes TH + 2 y rows of 64 columns (w0 - 1 .. w0 + 62)
+//      from TH + 4 x rows of 66 (w0 - 2 .. w0 + 63); stage 2 computes 64
+//      output columns and stores the first 62 (the last two read y columns
+//      that stage 1 did not compute; a wgmma row depends on its own A row
+//      only). 312 = 5 x 62 + 2, so the last W tile of the main paths is
+//      ragged. The wrapper's plan reports the waste as `recompute`: stage-1
+//      positions computed per output voxel.
+//    - Shared slots are channel-chunk major, [C / 8][rows][8] bf16 at a row
+//      pitch of 66 for x and y, so that any 8 consecutive rows of a chunk are
+//      one of wgmma's 128-byte core matrices, and a tap (kh, kw) is the
+//      offset (row + kh) * 66 + kw of the A descriptor's start, never a load.
+//    - A work item is an (H, W) tile and a slab of SD output planes along D.
+//      The block walks the item's y planes d0 - 1 .. d0 + SD in order: a step
+//      computes one y plane into a ring of three y slots, then (from the
+//      third) the output plane before it from the three y slots. Stage 1's
+//      epilogue (scale, bias, ReLU, zero outside the volume, bf16) stores
+//      from the accumulator registers into the y slot in stage 2's layout:
+//      y never leaves the SM.
+//    - x streams through a ring of stages, one per (y plane, kd, 16 input
+//      channels): the x plane under that tap plane, two TMA boxes of 8
+//      channels x 66 columns x TH + 4 rows from a tensor map of x, zero
+//      outside the volume and past Cin. k2 is resident in shared memory for
+//      the whole kernel; k1 too where it fits beside the rings (Cin <= 32 at
+//      the main shapes), else each stage carries that kd's 9 taps of k1 for
+//      its 16 channels (9,216 B, nine TMA bulk copies).
+//    - Warp specialisation and persistence, as in the conv core: one
+//      persistent block per SM over the work items; one thread of a producer
+//      warp issues each stage's TMA loads onto the slot's `full` mbarrier
+//      (a transaction count); two consumer warpgroups each own every other y
+//      row and output row, issue a stage's products as one group and hand
+//      the previous stage's slot back (`empty`) when this one is issued, so
+//      the loads run under the products. The consumers meet at a named
+//      barrier before a y slot is overwritten and after it is written. Every
+//      branch around a wgmma is warp-uniform in a way ptxas can see (roles
+//      from a shuffled warp index, item and plane bounds, barrier waits
+//      inside one asm statement); otherwise it serialises them (C7520).
+//    - The epilogues keep their scales and biases in registers; stage 2's ctx
+//      and residual values are loaded while its products run.
+//    - Tiles (the plan, cuda_fused_agg.pair_plan, picks the first that fits
+//      232,448 B with a ring of two): TH = 4 with k1 resident (N2 = 8 only:
+//      ptxas gives a thread of this block 168 registers, and TH = 4 spills
+//      at N2 = 16), then TH = 2 with k1 resident, then TH = 2 with k1
+//      streamed; the ring as long as fits, up to 8. The classifier runs TH
+//      = 4 (229,760 B, ring 5), dres1 TH = 2 (225,408 B, ring 5), dres0 TH =
+//      2 streamed (216,192 B, ring 5).
 //
 // 2. fused_pair_kernel, the CUDA cores: f32, or channel counts outside those
 //    (no path of the port launches it). One block per 4x8x16 output tile;
@@ -253,272 +279,401 @@ extern "C" int ecm_fused_conv3d_pair(
 
 // ---- route 1: the tensor cores ----
 
-#include "mma_sync.cuh"
+#include <cuda.h>  // CUtensorMap and its enums (the encoder is reached through the runtime)
+
+#include "wgmma.cuh"
 
 namespace {
-namespace pair_mma {
+namespace pair_wg {
 
 using bf16 = __nv_bfloat16;
-using ecm::ptx::cp_async16;
-using ecm::ptx::cp_async_commit;
-using ecm::ptx::cp_async_wait;
-using ecm::ptx::ldmatrix_x4;
-using ecm::ptx::mma_m16n8k16;
+namespace ptx = ecm::ptx;
 
-constexpr int kThreads = 256;
-constexpr int kTH = 8, kTW = 16;             // output tile in (H, W)
-constexpr int kYH = kTH + 2, kYW = kTW + 2;  // y over the tile and its halo
-constexpr int kXH = kTH + 4, kXW = kTW + 4;  // the x under that y
-constexpr int kPY = kYH * kYW;               // 180 y rows
-constexpr int kPX = kXH * kXW;               // 240 x rows
-constexpr int kCm = 32;                      // stage-1 channels (N of stage 1, K per tap of stage 2)
-constexpr int kKC = 32;                      // input channels per stage of the x ring
-constexpr int kLD = 40;                      // row pitch (bf16) of every shared operand
-constexpr int kXS = kPX * kLD;               // x elements per ring stage
-constexpr int kW1S = 9 * kCm * kLD;          // k1 elements per ring stage (9 taps of one kd)
-constexpr int kYS = kPY * kLD;               // elements per y plane
+constexpr int kM = 64;          // y columns of a row: one wgmma's M
+constexpr int kTW = kM - 2;     // output columns of a tile
+constexpr int kPitch = kM + 2;  // x columns of a stage, and the row pitch of x and y slots
+constexpr int kCm = 32;         // stage-1 channels: N of stage 1, K per tap of stage 2
+constexpr int kKC = 16;         // input channels of a ring stage: one k-step
+constexpr int kNWG = 2;         // consumer warpgroups
+constexpr int kThreads = 128 * kNWG + 32;  // and one producer warp
+constexpr int kMaxRing = 8;
+constexpr int kYSlots = 3;
+constexpr int kBarBytes = 128;          // full[kMaxRing], empty[kMaxRing] ahead of the weights
+constexpr int kTapBytes = kCm * 16 * 2;  // k1's B operand for one (tap, 16 input channels)
+constexpr int kW1Stage = 9 * kTapBytes;  // a streamed stage's k1: 9 taps x 16 channels
+constexpr long long kSmemMax = 232448;
 
-struct Params {
-  const bf16* x;    // [B, D, H, W, Cin]
-  const bf16* k1;   // [3 kd][nch][9 taps][32 co][kLD], ci in 32 c + [0, 32), zero pads
-  const float* s1;  // [32]
-  const float* b1;
-  const bf16* k2;   // [27 taps][Cout_pad][kLD], ci in [0, 32), zero pads
-  const float* s2;  // [Cout]
-  const float* b2;
-  const bf16* ctx;  // [B, H, W, Cout] or null
-  bf16* out;        // [B, D, H, W, Cout]
-  int B, D, H, W, Cin, Cout, nch, relu1, relu2, residual;
-  int sd, nsd, nh, nw;  // D slab, and the counts of slabs and tiles
+// the x rows of a stage's 8-channel chunk, rounded up to 8 rows (128 bytes)
+__host__ __device__ constexpr int x_chunk_rows(int th) { return ((th + 4) * kPitch + 7) / 8 * 8; }
+
+template <int TH>
+struct Tile {
+  static constexpr int kYR = TH + 2, kXR = TH + 4;  // y rows, x rows
+  static constexpr int kYRows = kYR * kPitch, kXRows = kXR * kPitch;
+  static constexpr int kXChunk = x_chunk_rows(TH);  // rows from one 8-channel chunk to the next
+  static constexpr int kYBytes = kCm / 8 * kYRows * 16;
+  static constexpr int kXBytes = kKC / 8 * kXChunk * 16;
+  static constexpr int kYPW = kYR / kNWG, kOPW = TH / kNWG;  // y rows, output rows of a warpgroup
 };
 
-__host__ __device__ constexpr size_t smem_bytes(int cout_pad) {
-  return (size_t)(2 * (kXS + kW1S) + 3 * kYS + 27 * cout_pad * kLD) * sizeof(bf16);
+__host__ __device__ constexpr long long smem_bytes(int th, int ks1, int n2, int resident, int ring) {
+  return kBarBytes + (resident ? 27LL * ks1 * kTapBytes : 0) + 27LL * kCm * n2 * 2 +
+         (long long)kYSlots * (kCm / 8) * (th + 2) * kPitch * 16 +
+         (long long)ring * ((kKC / 8) * x_chunk_rows(th) * 16 + (resident ? 0 : kW1Stage));
 }
 
-template <int NT2>  // stage-2 n-tiles: Cout_pad / 8
-__global__ void __launch_bounds__(kThreads, 1) fused_pair_mma_kernel(const Params P) {
-  constexpr int NP = 8 * NT2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [2][kPX][kLD]
-  bf16* w1s = xs + 2 * kXS;                       // [2][9][32][kLD]
-  bf16* ys = w1s + 2 * kW1S;                      // [3][kPY][kLD]
-  bf16* k2s = ys + 3 * kYS;                       // [27][NP][kLD]
+struct Params {
+  const bf16* x;         // [B, D, H, W, Cin]
+  const bf16* k1;        // [27][ks1][Cm / 8][2][8][8]: cuda_gband.pack_conv_wgmma
+  const float* s1;       // [Cm]
+  const float* b1;
+  const bf16* k2;        // [27][Cm / 16][N2 / 8][2][8][8]
+  const float* s2;       // [Cout]
+  const float* b2;
+  const bf16* ctx;       // [B, H, W, Cout] or null
+  bf16* out;             // [B, D, H, W, Cout]
+  int B, D, H, W, Cin, Cout, ks1;  // ks1: Cin rounded up to 16, / 16: the stages of a tap plane
+  int relu1, relu2, residual, resident;
+  int sd, nsd, nth, ntw, ring;
+  long long items;
+};
 
-  int blk = blockIdx.x;
-  const int w0 = (blk % P.nw) * kTW;
-  blk /= P.nw;
-  const int h0 = (blk % P.nh) * kTH;
-  blk /= P.nh;
-  const int d0 = (blk % P.nsd) * P.sd;
-  const int b = blk / P.nsd;
-  const int nd = min(P.sd, P.D - d0);  // output planes of this slab
-  const int per_plane = 3 * P.nch;     // ring stages per y plane: (kd, channel chunk)
-  const int stages = (nd + 2) * per_plane;  // y planes d0 - 1 .. d0 + nd
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+struct Item {
+  int b, d0, nd, h0, w0;  // tile origin, output planes [d0, d0 + nd)
+};
 
-  // stage s: y plane j = s / per_plane (depth d0 - 1 + j), tap plane kd, chunk
-  // c; it reads x plane d0 - 2 + j + kd. It is skipped (no copies, no MMAs)
-  // when that y plane or that x plane lies outside the volume.
-  auto active = [&](int s) {
-    const int j = s / per_plane, kd = (s / P.nch) % 3;
-    const int dy = d0 - 1 + j, id = dy + kd - 1;
-    return dy >= 0 && dy < P.D && id >= 0 && id < P.D;
-  };
-  auto issue = [&](int s) {
-    if (active(s)) {
-      const int j = s / per_plane, kd = (s / P.nch) % 3, c = s % P.nch;
-      const int id = d0 - 2 + j + kd;
-      bf16* xd = xs + (s & 1) * kXS;
-      bf16* wd = w1s + (s & 1) * kW1S;
-      for (int i = tid; i < kPX * 4; i += kThreads) {
-        const int row = i >> 2, q = i & 3;
-        const int ih = h0 - 2 + row / kXW, iw = w0 - 2 + row % kXW, ci = c * kKC + 8 * q;
-        const bool ok = ih >= 0 && ih < P.H && iw >= 0 && iw < P.W && ci < P.Cin;
-        const bf16* src =
-            ok ? P.x + ((((size_t)b * P.D + id) * P.H + ih) * P.W + iw) * P.Cin + ci : P.x;
-        cp_async16(xd + row * kLD + 8 * q, src, ok);
-      }
-      const bf16* ws = P.k1 + (size_t)(kd * P.nch + c) * kW1S;
-      for (int i = tid; i < kW1S / 8; i += kThreads) cp_async16(wd + 8 * i, ws + 8 * i, true);
-    }
-    cp_async_commit();
-  };
+template <int TH>
+__device__ __forceinline__ Item item_at(const Params& P, long long i) {
+  Item it;
+  it.w0 = (int)(i % P.ntw) * kTW;
+  i /= P.ntw;
+  it.h0 = (int)(i % P.nth) * TH;
+  i /= P.nth;
+  it.d0 = (int)(i % P.nsd) * P.sd;
+  it.b = (int)(i / P.nsd);
+  it.nd = min(P.sd, P.D - it.d0);
+  return it;
+}
 
-  // k2 once, in the first group
-  for (int i = tid; i < 27 * NP * kLD / 8; i += kThreads) cp_async16(k2s + 8 * i, P.k2 + 8 * i, true);
-  issue(0);
+// the tap planes kd in [kd0, kd1) of y plane dy whose x plane dy - 1 + kd
+// lies inside the volume (none when dy itself lies outside)
+__device__ __forceinline__ int kd_lo(int dy) { return dy >= 1 ? 0 : 1; }
+__device__ __forceinline__ int kd_hi(const Params& P, int dy) {
+  return dy < 0 || dy >= P.D ? 0 : min(3, P.D + 1 - dy);
+}
 
-  // ldmatrix row addresses of this lane: A row lr at k offset lk; B row
-  // (output channel) bn at k offset bk
-  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lk = (lane >> 4) * 8;
-  const int bn = lane & 7, bk = 8 * (lane >> 3);
-  const int g = lane >> 2, t = lane & 3;
-  // stage 1: warp (wm, wn) owns m-tiles wm, wm + 4, wm + 8 and n-tiles 2 wn, 2 wn + 1
-  const int wm = warp & 3, wn = warp >> 2;
-  int arow[3];
+template <int N>
+__device__ __forceinline__ void retire(float (&d)[N / 2]) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const int p = min(16 * (wm + 4 * i) + lr, kPY - 1);
-    arow[i] = (p / kYW) * kXW + p % kYW;  // the x row under y row p at tap (0, 0)
+  for (int i = 0; i < N / 2; ++i) ptx::fence_operand(d[i]);
+}
+
+template <int TH, int N2>
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_pair_wgmma_kernel(const Params P, const __grid_constant__ CUtensorMap xmap) {
+  using T = Tile<TH>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxRing;
+  unsigned char* k1s = smem + kBarBytes;  // resident k1, or nothing
+  const int k1bytes = P.resident ? 27 * P.ks1 * kTapBytes : 0;
+  unsigned char* k2s = k1s + k1bytes;
+  constexpr int k2bytes = 27 * kCm * N2 * 2;
+  unsigned char* ys = k2s + k2bytes;  // [kYSlots][Cm / 8][kYRows][16 B]
+  unsigned char* ring = ys + kYSlots * T::kYBytes;
+  const int stage_bytes = T::kXBytes + (P.resident ? 0 : kW1Stage);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // uniform, and seen so
+
+  if (tid == 0) {
+    for (int i = 0; i < P.ring; ++i) {
+      ptx::mbar_init(full + i, 1);
+      ptx::mbar_init(empty + i, 128 * kNWG);
+    }
+    ptx::mbar_init_fence();
   }
-  float acc1[3][2][4];
+  {
+    const unsigned char* w1 = reinterpret_cast<const unsigned char*>(P.k1);
+    const unsigned char* w2 = reinterpret_cast<const unsigned char*>(P.k2);
+    for (int i = tid; i < k1bytes / 16; i += kThreads) ptx::cp_async16(k1s + 16 * i, w1 + 16 * i, true);
+    for (int i = tid; i < k2bytes / 16; i += kThreads) ptx::cp_async16(k2s + 16 * i, w2 + 16 * i, true);
+  }
+  ptx::cp_async_commit();
+  ptx::cp_async_wait<0>();
+  ptx::fence_proxy_async();
+  __syncthreads();
 
-  for (int s = 0; s < stages; ++s) {
-    if (s + 1 < stages)
-      issue(s + 1);
-    else
-      cp_async_commit();
-    cp_async_wait<1>();  // stage s (and k2) have landed
-    __syncthreads();
-    const int j = s / per_plane, r = s % per_plane;
-    if (r == 0) {
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc1[i][n][e] = 0.f;
-    }
-    if (active(s)) {
-      const bf16* xb = xs + (s & 1) * kXS;
-      const bf16* wb = w1s + (s & 1) * kW1S;
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int off = (tap / 3) * kXW + tap % 3;
-        unsigned bf[2][4];
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-          ldmatrix_x4(bf[n], wb + (tap * kCm + 8 * (2 * wn + n) + bn) * kLD + bk);
-#pragma unroll
-        for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-          for (int i = 0; i < 3; ++i) {
-            unsigned a[4];
-            ldmatrix_x4(a, xb + (arow[i] + off) * kLD + 16 * ks + lk);
-#pragma unroll
-            for (int n = 0; n < 2; ++n) mma_m16n8k16(acc1[i][n], a, bf[n][2 * ks], bf[n][2 * ks + 1]);
+  if (warp == 4 * kNWG) {  // the producer warp: one thread issues the stages' TMA loads
+    if (lane != 0) return;
+    int slot = 0, wrapped = 0;  // the next stage's slot; its parity of use, and whether used
+    for (long long i = blockIdx.x; i < P.items; i += gridDim.x) {
+      const Item it = item_at<TH>(P, i);
+      for (int j = 0; j < it.nd + 2; ++j) {
+        const int dy = it.d0 - 1 + j;
+        for (int kd = kd_lo(dy); kd < kd_hi(P, dy); ++kd)
+          for (int c = 0; c < P.ks1; ++c) {
+            if (wrapped) ptx::mbar_wait(empty + slot, (wrapped - 1) & 1);
+            unsigned char* dst = ring + slot * stage_bytes;
+            // x plane dy - 1 + kd under the tile and its halo, 8 channels a
+            // box, zero outside the volume and past Cin; a streamed k1 after
+            // it: kd's 9 taps for these channels, [9][Cm / 8][2][8][8]
+            ptx::mbar_expect_tx(full + slot, T::kXRows * kKC * 2 + (P.resident ? 0 : kW1Stage));
+            for (int q = 0; q < kKC / 8; ++q)
+              ptx::tma_load_5d(dst + q * T::kXChunk * 16, &xmap, kKC * c + 8 * q, it.w0 - 2, it.h0 - 2,
+                               dy - 1 + kd, it.b, full + slot);
+            if (!P.resident)
+              for (int tap = 0; tap < 9; ++tap)
+                ptx::bulk_load(dst + T::kXBytes + tap * kTapBytes,
+                               reinterpret_cast<const unsigned char*>(P.k1) +
+                                   (size_t)((kd * 9 + tap) * P.ks1 + c) * kTapBytes,
+                               kTapBytes, full + slot);
+            if (++slot == P.ring) {
+              slot = 0;
+              ++wrapped;
+            }
           }
       }
     }
-    if (r == per_plane - 1) {
-      // y plane j into ring slot j % 3: E1, zero outside the volume, bf16
-      const int dy = d0 - 1 + j;
-      bf16* yd = ys + (j % 3) * kYS;
+    return;
+  }
+
+  // consumers: warpgroup wg owns y rows wg + kNWG r and output rows wg + kNWG
+  // r; warp (warp % 4) holds the accumulator rows (tile columns) 16 (warp %
+  // 4) + g and + 8, channels 8 j + 2 t4 (+ 1)
+  const int wg = warp / 4, g = lane >> 2, t4 = lane & 3;
+  const int col = 16 * (warp % 4) + g;
+  const uint64_t k1desc = ptx::wgmma_desc(k1s, 128, 256);
+  const uint64_t k2desc = ptx::wgmma_desc(k2s, 128, 256);
+  const int tstride = P.resident ? P.ks1 : 1;  // k1 k-steps from one tap to the next
+  // this thread's channels of both affines, in registers
+  float sc1[kCm / 4], bi1[kCm / 4], sc2[N2 / 4], bi2[N2 / 4];
 #pragma unroll
-      for (int i = 0; i < 3; ++i)
+  for (int e = 0; e < kCm / 4; ++e) {
+    const int ch = 8 * (e / 2) + 2 * t4 + e % 2;
+    sc1[e] = P.s1[ch];
+    bi1[e] = P.b1[ch];
+  }
+#pragma unroll
+  for (int e = 0; e < N2 / 4; ++e) {
+    const int ch = min(8 * (e / 2) + 2 * t4 + e % 2, P.Cout - 1);  // pad channels: never stored
+    sc2[e] = P.s2[ch];
+    bi2[e] = P.b2[ch];
+  }
+  int slot = 0, phase = 0;  // the next stage's slot and the parity of its use
+  int J = 0;  // sequence number of the y plane: its slot is J % kYSlots
+  for (long long i = blockIdx.x; i < P.items; i += gridDim.x) {
+    const Item it = item_at<TH>(P, i);
+    for (int j = 0; j < it.nd + 2; ++j, ++J) {
+      const int dy = it.d0 - 1 + j;
+      // ---- stage 1: y plane dy, this warpgroup's rows ----
+      float acc[T::kYPW][kCm / 2];
+      const int kd0 = kd_lo(dy), kd1 = kd_hi(P, dy);
+      int prev = -1;  // the slot of the stage issued before, not yet handed back
+      for (int kd = kd0; kd < kd1; ++kd)
+        for (int c = 0; c < P.ks1; ++c) {
+          ptx::mbar_wait(full + slot, phase);  // TMA wrote it: async proxy, no fence
+          unsigned char* st = ring + slot * stage_bytes;
+          // A: the stage's x rows (8-channel chunks kXChunk rows apart); B: k1
+          const uint64_t xdesc = ptx::wgmma_desc(st, T::kXChunk * 16, 128);
+          const uint64_t wdesc = P.resident ? k1desc + (uint64_t)(kd * 9 * P.ks1 + c) * (kTapBytes / 16)
+                                            : ptx::wgmma_desc(st + T::kXBytes, 128, 256);
+          const int first = kd == kd0 && c == 0;
+          ptx::wgmma_fence();
+#pragma unroll
+          for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+            for (int r = 0; r < T::kYPW; ++r) {
+              const int yr = wg + kNWG * r;
+              ptx::wgmma_ss<kCm>(acc[r], xdesc + (yr + tap / 3) * kPitch + tap % 3,
+                                 wdesc + (uint64_t)(tap * tstride) * (kTapBytes / 16), !first | tap);
+            }
+          ptx::wgmma_commit();
+          // the stage before has retired: its slot goes back. The waits are
+          // unconditional: a wait on a path ptxas cannot rule out makes it
+          // serialise the wgmmas (C7514)
+          ptx::wgmma_wait<1>();
+          if (prev >= 0) ptx::mbar_arrive(empty + prev);
+          prev = slot;
+          if (++slot == P.ring) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+      ptx::wgmma_wait<0>();
+      if (prev >= 0) ptx::mbar_arrive(empty + prev);
+#pragma unroll
+      for (int r = 0; r < T::kYPW; ++r) retire<kCm>(acc[r]);
+      // every consumer is done with the y slot's old plane (read by the last
+      // step's stage 2)
+      ptx::named_barrier(1, 128 * kNWG);
+      // E1 and bf16 into y slot J % 3; zero outside the volume
+      unsigned char* yd = ys + (J % kYSlots) * T::kYBytes;
+#pragma unroll
+      for (int r = 0; r < T::kYPW; ++r) {
+        const int yr = wg + kNWG * r, ah = it.h0 - 1 + yr;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int p = 16 * (wm + 4 * i) + g + 8 * half;
-          if (p >= kPY) continue;
-          const int ah = h0 - 1 + p / kYW, aw = w0 - 1 + p % kYW;
-          const bool inside = dy >= 0 && dy < P.D && ah >= 0 && ah < P.H && aw >= 0 && aw < P.W;
+          const int c = col + 8 * half, aw = it.w0 - 1 + c;
+          const bool inside = kd1 > kd0 && ah >= 0 && ah < P.H && aw >= 0 && aw < P.W;
 #pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            const int c = 8 * (2 * wn + n) + 2 * t;
+          for (int jn = 0; jn < kCm / 8; ++jn) {
             float v0 = 0.f, v1 = 0.f;
             if (inside) {
-              v0 = acc1[i][n][2 * half] * __ldg(P.s1 + c) + __ldg(P.b1 + c);
-              v1 = acc1[i][n][2 * half + 1] * __ldg(P.s1 + c + 1) + __ldg(P.b1 + c + 1);
+              v0 = acc[r][4 * jn + 2 * half] * sc1[2 * jn] + bi1[2 * jn];
+              v1 = acc[r][4 * jn + 2 * half + 1] * sc1[2 * jn + 1] + bi1[2 * jn + 1];
               if (P.relu1) {
                 v0 = fmaxf(v0, 0.f);
                 v1 = fmaxf(v1, 0.f);
               }
             }
-            *reinterpret_cast<__nv_bfloat162*>(yd + p * kLD + c) = __floats2bfloat162_rn(v0, v1);
+            *reinterpret_cast<__nv_bfloat162*>(yd + ((size_t)jn * T::kYRows + yr * kPitch + c) * 16 +
+                                               4 * t4) = __floats2bfloat162_rn(v0, v1);
           }
         }
-      if (j >= 2) {
-        __syncthreads();  // y plane j is in the ring
-        // output plane od = d0 + j - 2 from y planes j - 2, j - 1, j; warp =
-        // tile row, its 16 columns one m-tile
-        float acc2[NT2][4];
+      }
+      ptx::fence_proxy_async();  // the y stores, before wgmma reads them
+      ptx::named_barrier(1, 128 * kNWG);
+      if (j < 2) continue;
+      // ---- stage 2: output plane dy - 1 from y planes dy - 2 .. dy ----
+      float acc2[T::kOPW][N2 / 2];
+      ptx::wgmma_fence();
 #pragma unroll
-        for (int n = 0; n < NT2; ++n)
+      for (int kd = 0; kd < 3; ++kd) {
+        const uint64_t ydesc =
+            ptx::wgmma_desc(ys + ((J - 2 + kd) % kYSlots) * T::kYBytes, T::kYRows * 16, 128);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc2[n][e] = 0.f;
+        for (int tap = 0; tap < 9; ++tap)
 #pragma unroll
-        for (int kd = 0; kd < 3; ++kd) {
-          const bf16* yb = ys + ((j - 2 + kd) % 3) * kYS;
+          for (int ks = 0; ks < kCm / 16; ++ks)
 #pragma unroll
-          for (int tap = 0; tap < 9; ++tap) {
-            const bf16* ar = yb + ((warp + tap / 3) * kYW + lr + tap % 3) * kLD + lk;
-            unsigned a0[4], a1[4];
-            ldmatrix_x4(a0, ar);
-            ldmatrix_x4(a1, ar + 16);
-#pragma unroll
-            for (int n = 0; n < NT2; ++n) {
-              unsigned bb[4];
-              ldmatrix_x4(bb, k2s + ((kd * 9 + tap) * NP + 8 * n + bn) * kLD + bk);
-              mma_m16n8k16(acc2[n], a0, bb[0], bb[1]);
-              mma_m16n8k16(acc2[n], a1, bb[2], bb[3]);
+            for (int r = 0; r < T::kOPW; ++r) {
+              const int orow = wg + kNWG * r;
+              ptx::wgmma_ss<N2>(acc2[r], ydesc + (orow + tap / 3) * kPitch + tap % 3 + 2 * ks * T::kYRows,
+                                k2desc + (uint64_t)((kd * 9 + tap) * 2 + ks) * (2 * N2), kd | tap | ks);
             }
-          }
-        }
-        const int od = d0 + j - 2, oh = h0 + warp;
-        if (oh < P.H) {
+      }
+      ptx::wgmma_commit();
+      // the output's voxels and adds (ctx, residual: channel pairs as raw
+      // bf16x2), loaded while the products run
+      const int od = dy - 1;
+      long long vox[T::kOPW][2];
+      unsigned cadd[T::kOPW][2][N2 / 8], radd[T::kOPW][2][N2 / 8];
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int ow = w0 + g + 8 * half;
-            if (ow >= P.W) continue;
-            const size_t vox = (((size_t)b * P.D + od) * P.H + oh) * P.W + ow;
-            const size_t cvox = ((size_t)b * P.H + oh) * P.W + ow;
+      for (int r = 0; r < T::kOPW; ++r) {
+        const int oh = it.h0 + wg + kNWG * r;
 #pragma unroll
-            for (int n = 0; n < NT2; ++n) {
-              const int c = 8 * n + 2 * t;
-              if (c >= P.Cout) continue;
-              float v[2] = {acc2[n][2 * half], acc2[n][2 * half + 1]};
+        for (int half = 0; half < 2; ++half) {
+          const int ow = it.w0 + col + 8 * half;
+          const bool in = col + 8 * half < kTW && ow < P.W && oh < P.H;
+          vox[r][half] = in ? (((long long)it.b * P.D + od) * P.H + oh) * P.W + ow : -1;
+          const long long cvox = ((long long)it.b * P.H + oh) * P.W + ow;
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                if (c + e >= P.Cout) continue;
-                v[e] = v[e] * __ldg(P.s2 + c + e) + __ldg(P.b2 + c + e);
-                if (P.relu2) v[e] = fmaxf(v[e], 0.f);
-                if (P.ctx) v[e] += __bfloat162float(P.ctx[cvox * P.Cout + c + e]);
-                if (P.residual) v[e] += __bfloat162float(P.x[vox * P.Cin + c + e]);
-              }
-              if (P.Cout == 1)
-                P.out[vox] = __float2bfloat16(v[0]);
-              else
-                *reinterpret_cast<__nv_bfloat162*>(P.out + vox * P.Cout + c) =
-                    __floats2bfloat162_rn(v[0], v[1]);
+          for (int jn = 0; jn < N2 / 8; ++jn) {
+            const int ch = 8 * jn + 2 * t4;
+            cadd[r][half][jn] = radd[r][half][jn] = 0;
+            if (in && ch < P.Cout) {
+              if (P.ctx)
+                cadd[r][half][jn] = P.Cout == 1 ? __bfloat16_as_ushort(P.ctx[cvox])
+                                                : *reinterpret_cast<const unsigned*>(P.ctx + cvox * P.Cout + ch);
+              if (P.residual)
+                radd[r][half][jn] = P.Cout == 1 ? __bfloat16_as_ushort(P.x[vox[r][half] * P.Cin])
+                                                : *reinterpret_cast<const unsigned*>(P.x + vox[r][half] * P.Cin + ch);
             }
           }
         }
       }
+      ptx::wgmma_wait<0>();
+#pragma unroll
+      for (int r = 0; r < T::kOPW; ++r) retire<N2>(acc2[r]);
+#pragma unroll
+      for (int r = 0; r < T::kOPW; ++r)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          if (vox[r][half] < 0) continue;
+          bf16* o = P.out + vox[r][half] * P.Cout;
+#pragma unroll
+          for (int jn = 0; jn < N2 / 8; ++jn) {
+            const int ch = 8 * jn + 2 * t4;
+            if (ch >= P.Cout) continue;
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              v[e] = acc2[r][4 * jn + 2 * half + e] * sc2[2 * jn + e] + bi2[2 * jn + e];
+              if (P.relu2) v[e] = fmaxf(v[e], 0.f);
+              // a bf16 is the high half of the f32 with the same bits
+              const unsigned c = cadd[r][half][jn], x = radd[r][half][jn];
+              v[e] += __uint_as_float(e ? c & 0xffff0000u : c << 16) + __uint_as_float(e ? x & 0xffff0000u : x << 16);
+            }
+            if (P.Cout == 1)
+              o[0] = __float2bfloat16(v[0]);
+            else
+              *reinterpret_cast<__nv_bfloat162*>(o + ch) = __floats2bfloat162_rn(v[0], v[1]);
+          }
+        }
     }
-    __syncthreads();  // ring stage s and the y slot read above are free again
   }
 }
 
-template <int NT2>
-cudaError_t launch(const Params& P, cudaStream_t stream) {
-  const size_t smem = smem_bytes(8 * NT2);
-  auto kernel = fused_pair_mma_kernel<NT2>;
+// x as a 5-D tensor map (C, W, H, D, B innermost first) whose box is one
+// stage's 8-channel chunk: 8 channels x 66 columns x TH + 4 rows of one plane
+bool x_tensor_map(CUtensorMap* map, const Params& P, int th) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                              CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess || !fn) return false;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t e = sizeof(bf16);
+  const cuuint64_t dims[5] = {(cuuint64_t)P.Cin, (cuuint64_t)P.W, (cuuint64_t)P.H, (cuuint64_t)P.D,
+                              (cuuint64_t)P.B};
+  const cuuint64_t strides[4] = {P.Cin * e, (cuuint64_t)P.W * P.Cin * e,
+                                 (cuuint64_t)P.H * P.W * P.Cin * e, (cuuint64_t)P.D * P.H * P.W * P.Cin * e};
+  const cuuint32_t box[5] = {8, (cuuint32_t)kPitch, (cuuint32_t)(th + 4), 1, 1};
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<bf16*>(P.x), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int TH, int N2>
+cudaError_t run(const Params& P, const CUtensorMap& xmap, int grid, long long smem, cudaStream_t stream) {
+  auto kernel = fused_pair_wgmma_kernel<TH, N2>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const long long blocks = (long long)P.B * P.nsd * P.nh * P.nw;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(P);
+  kernel<<<(unsigned)(grid < P.items ? grid : P.items), kThreads, (size_t)smem, stream>>>(P, xmap);
   return cudaGetLastError();
 }
 
-}  // namespace pair_mma
+}  // namespace pair_wg
 }  // namespace
 
-// The tensor-core route, bf16 only. k1 and k2 are packed by the wrapper
-// (cuda_fused_agg.pack_pair_mma) into the shared-memory images above: k1
-// [3][ceil(Cin/32)][9][32][40], k2 [27][Cout_pad][40], Cout_pad = 8 for
-// Cout == 1, else Cout; pads zero. Cm is 32; Cin % 8 == 0; Cout == 1 or a
-// multiple of 8 up to 32. scale/bias f32; ctx may be null; sd is the D slab.
-extern "C" int ecm_fused_conv3d_pair_mma(
+// The tensor-core route, bf16 only, tiled by the wrapper's plan
+// (cuda_fused_agg.pair_plan): th output rows (2, or 4 where N2 is 8) a tile,
+// a D slab of sd planes, `ring` x stages, k1 resident in shared memory or
+// streamed with x, `grid` persistent blocks, `smem` bytes a block (checked
+// against the kernel's own count). k1 and k2 are packed by
+// cuda_gband.pack_conv_wgmma: k1 [27][ceil(Cin / 16)][4][2][8][8], k2
+// [27][2][N2 / 8][2][8][8] with N2 = Cout rounded up to 8, 16 or 32; pads
+// zero. Cm is 32; Cin % 8 == 0; Cout == 1 or a multiple of 8 up to 32.
+// scale/bias f32; ctx may be null. x, k1 and k2 16-byte aligned.
+extern "C" int ecm_fused_conv3d_pair_wgmma(
     const void* x, const void* k1, const void* s1, const void* b1, const void* k2,
     const void* s2, const void* b2, const void* ctx, void* out, int B, int D, int H, int W,
-    int Cin, int Cout, int relu1, int relu2, int residual, int sd, void* stream) {
-  namespace pm = pair_mma;
-  if (Cin % 8 || !(Cout == 1 || (Cout % 8 == 0 && Cout <= 32)) || sd < 1)
+    int Cin, int Cout, int relu1, int relu2, int residual, int th, int sd, int ring,
+    int resident, int grid, long long smem, void* stream) {
+  namespace pw = pair_wg;
+  const int n2 = Cout <= 8 ? 8 : Cout <= 16 ? 16 : 32;
+  if (Cin % 8 || !(Cout == 1 || (Cout % 8 == 0 && Cout <= 32)) || !(th == 2 || th == 4) ||
+      (th == 4 && n2 > 8) || sd < 1 || ring < 2 || ring > pw::kMaxRing || grid < 1)
     return cudaErrorInvalidValue;
-  using pm::bf16;
-  pm::Params P;
+  using pw::bf16;
+  pw::Params P;
   P.x = static_cast<const bf16*>(x);
   P.k1 = static_cast<const bf16*>(k1);
   P.s1 = static_cast<const float*>(s1);
@@ -530,17 +685,20 @@ extern "C" int ecm_fused_conv3d_pair_mma(
   P.out = static_cast<bf16*>(out);
   P.B = B; P.D = D; P.H = H; P.W = W;
   P.Cin = Cin; P.Cout = Cout;
-  P.nch = (Cin + pm::kKC - 1) / pm::kKC;
-  P.relu1 = relu1; P.relu2 = relu2; P.residual = residual;
+  P.ks1 = (Cin + 15) / 16;
+  P.relu1 = relu1; P.relu2 = relu2; P.residual = residual; P.resident = resident ? 1 : 0;
   P.sd = sd;
   P.nsd = (D + sd - 1) / sd;
-  P.nh = (H + pm::kTH - 1) / pm::kTH;
-  P.nw = (W + pm::kTW - 1) / pm::kTW;
+  P.nth = (H + th - 1) / th;
+  P.ntw = (W + pw::kTW - 1) / pw::kTW;
+  P.ring = ring;
+  P.items = (long long)B * P.nsd * P.nth * P.ntw;
+  if (smem != pw::smem_bytes(th, P.ks1, n2, P.resident, ring) || smem > pw::kSmemMax)
+    return cudaErrorInvalidValue;
+  CUtensorMap xmap;
+  if (!pw::x_tensor_map(&xmap, P, th)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (Cout == 1 ? 1 : Cout / 8) {
-    case 1: return pm::launch<1>(P, s);
-    case 2: return pm::launch<2>(P, s);
-    case 3: return pm::launch<3>(P, s);
-    default: return pm::launch<4>(P, s);
-  }
+  if (th == 4) return pw::run<4, 8>(P, xmap, grid, smem, s);
+  if (n2 == 8) return pw::run<2, 8>(P, xmap, grid, smem, s);
+  return n2 == 16 ? pw::run<2, 16>(P, xmap, grid, smem, s) : pw::run<2, 32>(P, xmap, grid, smem, s);
 }

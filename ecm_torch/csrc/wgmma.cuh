@@ -1,7 +1,10 @@
 // Hopper's warpgroup tensor-core and barrier instructions as small device
 // functions (header only, sm_90a): wgmma.mma_async with both operands in
 // shared memory through matrix descriptors, its fence / commit / wait, the
-// shared-memory mbarrier, and cp.async's arrival on an mbarrier.
+// shared-memory mbarrier, named barriers, cp.async from global to shared
+// memory with its arrival on an mbarrier, and the Tensor Memory
+// Accelerator's loads (a tile through a tensor map, or a contiguous bulk
+// copy) that complete a transaction count on an mbarrier.
 //
 // wgmma_ss<N>: d (64 x N, f32) = A (64 x 16, bf16) * B (16 x N, bf16)
 // [+ d if acc], for one warpgroup of four warps. Warp i of the warpgroup holds
@@ -20,12 +23,34 @@
 
 #pragma once
 
-#include <cstdint>
+#include <cuda_runtime.h>
 
-#include "mma_sync.cuh"
+#include <cstdint>
 
 namespace ecm {
 namespace ptx {
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global src to shared dst, asynchronously; dst is zero-filled
+// and src not read when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 __device__ __forceinline__ uint64_t wgmma_desc(const void* smem, unsigned lbo, unsigned sbo) {
   return (uint64_t)((smem_addr(smem) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
@@ -51,6 +76,17 @@ __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"
 
 template <int N>
 __device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<8>(float (&d)[4], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(acc));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t a, uint64_t b, int acc) {
@@ -129,6 +165,42 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// barrier `id` (1-15; 0 is __syncthreads) among `count` threads, whole warps
+__device__ __forceinline__ void named_barrier(unsigned id, unsigned count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// one arrival on bar that also expects `bytes` more bytes of transactions
+// (the TMA loads issued after it) before the phase can complete
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// TMA: the box of a 5-D tensor map (a __grid_constant__ kernel parameter) at
+// element coordinates (c0 innermost .. c4) into shared memory, in box order
+// (innermost dimension contiguous); elements outside the tensor read as 0.
+// Completes its bytes on bar.
+__device__ __forceinline__ void tma_load_5d(void* dst, const void* tmap, int c0, int c1, int c2,
+                                            int c3, int c4, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(smem_addr(dst)),
+      "l"(tmap), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// TMA: `bytes` (a multiple of 16) contiguous bytes from global src into
+// shared dst (both 16-byte aligned); completes its bytes on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // order generic-proxy writes of shared memory (st, cp.async) before the

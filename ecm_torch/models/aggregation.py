@@ -45,7 +45,7 @@ from torch import nn
 from ecm_torch.models.context import ContextMapping
 from ecm_torch.models.layers import ConvBN, ConvTransposeBN, conv, fold_bn, remat
 from ecm_torch.ops.cuda_fused_agg import fused_conv3d_pair
-from ecm_torch.ops.cuda_gband import conv3d_bn_down, conv3d_bn_s1
+from ecm_torch.ops.cuda_gband import conv3d_bn_down, conv3d_bn_s1, unit_affine
 from ecm_torch.ops.cuda_gdeconv import deconv3d_bn
 from ecm_torch.parallel.halo import slab_down, slab_s1, slab_up
 
@@ -212,7 +212,7 @@ class ECMAggregation(nn.Module):
         if fused or kernels:
             cost = slab_s1(lambda v: fused_conv3d_pair(
                 v, *self._fold(head.conv1), head.conv2.weight,
-                torch.ones(1, device=v.device), head.conv2.bias, relu2=False,
+                unit_affine(1, v.device)[0], head.conv2.bias, relu2=False,
             ), inp, halo=2)
         else:
             cost = head(inp)

@@ -13,8 +13,11 @@ ctx ``[B, H, W, Cout]`` in x's dtype; ``residual`` adds ``x[..., :Cout]``
 
 On the card the kernel has two routes (:func:`pair_route`): bf16 with Cin a
 multiple of 8, Cm = 32 and Cout 1 or a multiple of 8 up to 32 (every form a
-path of the port launches) runs on the tensor cores; f32 or other channel
-counts on the CUDA cores. :func:`pair_plan` is each route's tiling.
+path of the port launches) runs on the tensor cores through ``wgmma``; f32
+or other channel counts on the CUDA cores. :func:`pair_plan` is each route's
+tiling. The ``wgmma`` route's weights and f32 scale and bias vectors are
+made once per tensor version (:func:`pair_operands`, through
+``cuda_gband.cached_pack``).
 """
 
 from __future__ import annotations
@@ -27,90 +30,148 @@ import torch
 import torch.nn.functional as F
 
 from ecm_torch.kernels.build import check, library
-from ecm_torch.ops.cuda_gband import pack_taps
+from ecm_torch.ops.cuda_gband import H100_SMS, SMEM_PER_BLOCK, cached_pack, pack_conv_wgmma, pack_taps
 
 # CUDA-core route: one block per output tile; the stage-1 intermediate over
 # the tile and its one-voxel halo lives in shared memory, at most this many bytes
 _TILE = (4, 8, 16)
 _SMEM_LIMIT = 200 * 1024
-# tensor-core route (csrc/fused_conv3d_pair.cu, pair_mma): an (H, W) tile per
-# block, which marches along a slab of D planes of at most _MMA_SD; every
-# shared operand row is 32 bf16 at a pitch of _MMA_LD
-_MMA_TILE = (8, 16)
-_MMA_SD = 16
-_MMA_CM = 32
-_MMA_LD = 40
+# wgmma route (csrc/fused_conv3d_pair.cu, pair_wg): a tile is TH output rows
+# of _WG_TW columns, from y rows of _WG_M columns and x rows of _WG_PITCH;
+# mbarriers ahead of the weights, _WG_YSLOTS y planes, a ring of at most
+# _WG_MAX_RING x stages of _WG_KC input channels (and, where k1 is not
+# resident, that stage's 9 taps of k1); TH by preference
+_WG_M = 64
+_WG_TW = _WG_M - 2
+_WG_PITCH = _WG_M + 2
+_WG_CM = 32
+_WG_KC = 16
+_WG_BAR_BYTES = 128
+_WG_YSLOTS = 3
+_WG_MAX_RING = 8
+_WG_TH = (4, 2)
 
 
 class PairPlan(NamedTuple):
-    """A route's tiling of one call: ``tile`` (D, H, W) of outputs per block
-    (the tensor-core route's D is its slab), ``blocks`` launched,
-    ``smem_bytes`` per block, and ``recompute``: the stage-1 positions a
-    block computes per output voxel it writes."""
+    """A route's tiling of one call. ``tile``: (D, H, W) of outputs per
+    block (CUDA cores) or per work item (``wgmma``: D is the item's slab);
+    ``blocks`` launched, ``smem_bytes`` per block, and ``recompute``: the
+    stage-1 positions computed per output voxel. ``wgmma`` only: ``items``
+    walked by the persistent blocks, ``ring`` x stages, and whether k1 is
+    ``resident`` in shared memory (else each stage carries its taps)."""
 
     route: str
     tile: tuple[int, int, int]
     blocks: int
     smem_bytes: int
     recompute: float
+    items: int = 0
+    ring: int = 0
+    resident: bool = False
 
 
 def pair_route(dtype: torch.dtype, cin: int, cm: int, cout: int) -> str:
-    """``"tensor_cores"`` for bf16 with Cin % 8 == 0, Cm == 32 and Cout 1
-    or a multiple of 8 up to 32 (k2 stays in shared memory: 27 x Cout x 80
-    bytes); else ``"cuda_cores"``."""
+    """``"wgmma"`` for bf16 with Cin % 8 == 0, Cm == 32 and Cout 1 or a
+    multiple of 8 up to 32; else ``"cuda_cores"``."""
     if (
-        dtype == torch.bfloat16 and cin % 8 == 0 and cm == _MMA_CM
+        dtype == torch.bfloat16 and cin % 8 == 0 and cm == _WG_CM
         and (cout == 1 or (cout % 8 == 0 and cout <= 32))
     ):
-        return "tensor_cores"
+        return "wgmma"
     return "cuda_cores"
 
 
-def _mma_sd(d: int) -> int:
-    """The D slab: as even as ceil(D / _MMA_SD) slabs allow."""
-    return -(-d // -(-d // _MMA_SD))
+def _wg_n2(cout: int) -> int:
+    """Stage 2's N: Cout padded to 8, 16 or 32."""
+    return 8 if cout <= 8 else 16 if cout <= 16 else 32
 
 
-def pair_plan(
-    dtype: torch.dtype, b: int, d: int, h: int, w: int, cin: int, cm: int, cout: int
-) -> PairPlan:
-    """The route and tiling :func:`fused_conv3d_pair` launches for x
-    ``[b, d, h, w, cin]`` and widths (cm, cout)."""
-    route = pair_route(dtype, cin, cm, cout)
-    if route == "tensor_cores":
-        (th, tw), sd = _MMA_TILE, _mma_sd(d)
-        x_rows, y_rows = (th + 4) * (tw + 4), (th + 2) * (tw + 2)
-        cout_pad = 8 if cout == 1 else cout
-        # x and 9 taps of k1 in each of two ring stages, three y planes, k2
-        elems = 2 * (x_rows + 9 * _MMA_CM) * _MMA_LD + 3 * y_rows * _MMA_LD + 27 * cout_pad * _MMA_LD
-        return PairPlan(
-            route, (sd, th, tw), b * -(-d // sd) * -(-h // th) * -(-w // tw), 2 * elems,
-            y_rows / (th * tw) * (sd + 2) / sd,
-        )
-    td, th, tw = _tile(d, h, w, cm, dtype.itemsize)
-    return PairPlan(
-        route, (td, th, tw), b * -(-d // td) * -(-h // th) * -(-w // tw),
-        (td + 2) * (th + 2) * (tw + 2) * cm * dtype.itemsize,
-        (td + 2) * (th + 2) * (tw + 2) / (td * th * tw),
+def _wg_smem(th: int, cin: int, cout: int, resident: bool, ring: int) -> int:
+    """A block's shared memory: the mbarriers, k1 (if resident) and k2, the y
+    slots and the ring (the kernel's smem_bytes)."""
+    ks1 = -(-cin // 16)
+    y_bytes = _WG_CM // 8 * (th + 2) * _WG_PITCH * 16
+    x_bytes = _WG_KC // 8 * -(-(th + 4) * _WG_PITCH // 8) * 8 * 16  # chunks 128-byte aligned
+    k1_tap = _WG_CM * 16 * 2
+    return (
+        _WG_BAR_BYTES + (27 * ks1 * k1_tap if resident else 0) + 27 * _WG_CM * _wg_n2(cout) * 2
+        + _WG_YSLOTS * y_bytes + ring * (x_bytes + (0 if resident else 9 * k1_tap))
     )
 
 
-def pack_pair_mma(k1: torch.Tensor, k2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The tensor-core route's weights as the kernel's shared-memory images,
-    bf16, zero in every pad: k1 ``[Cm, Cin, 3, 3, 3]`` -> ``[3 kd, nch, 9
-    (kh, kw), Cm, 40]`` with input channel ``32 c + i`` at ``[:, c, :, :,
-    i]`` (nch = ceil(Cin / 32)); k2 ``[Cout, Cm, 3, 3, 3]`` -> ``[27 taps,
-    Cout_pad, 40]`` (Cout_pad 8 for Cout 1, else Cout)."""
-    cm, cin = k1.shape[:2]
-    cout = k2.shape[0]
-    nch = -(-cin // _MMA_CM)
-    k1b = F.pad(k1.to(torch.bfloat16), (0, 0, 0, 0, 0, 0, 0, nch * _MMA_CM - cin))
-    k1p = k1b.reshape(cm, nch, _MMA_CM, 3, 3, 3).permute(3, 1, 4, 5, 0, 2).reshape(3, nch, 9, cm, _MMA_CM)
-    k2b = F.pad(k2.to(torch.bfloat16), (0, 0, 0, 0, 0, 0, 0, 0, 0, (8 if cout == 1 else cout) - cout))
-    k2p = k2b.permute(2, 3, 4, 0, 1).reshape(27, -1, cm)
-    return (F.pad(k1p, (0, _MMA_LD - _MMA_CM)).contiguous(),
-            F.pad(k2p, (0, _MMA_LD - cm)).contiguous())
+def _wg_layout(cin: int, cout: int) -> tuple[int, bool, int]:
+    """(TH, k1 resident, ring): the first of TH 4 resident, TH 4 streamed (N2
+    = 8 only: the kernel's registers), TH 2 resident, TH 2 streamed whose
+    ring of two fits; the ring then as long as fits."""
+    for th in _WG_TH:
+        if th == 4 and _wg_n2(cout) > 8:
+            continue
+        for resident in (True, False):
+            if _wg_smem(th, cin, cout, resident, 2) <= SMEM_PER_BLOCK:
+                ring = max(r for r in range(2, _WG_MAX_RING + 1)
+                           if _wg_smem(th, cin, cout, resident, r) <= SMEM_PER_BLOCK)
+                return th, resident, ring
+    raise ValueError(f"fused_conv3d_pair: no wgmma tile fits for Cin={cin}, Cout={cout}")
+
+
+@functools.lru_cache(maxsize=256)
+def pair_plan(
+    dtype: torch.dtype, b: int, d: int, h: int, w: int, cin: int, cm: int, cout: int,
+    sms: int = H100_SMS,
+) -> PairPlan:
+    """The route and tiling :func:`fused_conv3d_pair` launches for x
+    ``[b, d, h, w, cin]`` and widths (cm, cout) on a card of ``sms`` SMs.
+    ``wgmma``: the D slab minimises the rounds of blocks (at most one per
+    SM) times the y planes an item computes (its slab and two)."""
+    route = pair_route(dtype, cin, cm, cout)
+    if route == "wgmma":
+        th, resident, ring = _wg_layout(cin, cout)
+        tiles = b * -(-h // th) * -(-w // _WG_TW)
+        best = None
+        for sd in sorted({-(-d // n) for n in range(1, d + 1)}, reverse=True):
+            items = tiles * -(-d // sd)
+            blocks = min(items, sms)
+            cost = -(-items // blocks) * (sd + 2)
+            if best is None or cost < best[0]:
+                best = (cost, sd, items, blocks)
+        _, sd, items, blocks = best
+        y_planes = b * (d + 2 * -(-d // sd)) * -(-h // th) * -(-w // _WG_TW)
+        return PairPlan(
+            route, (sd, th, _WG_TW), blocks, _wg_smem(th, cin, cout, resident, ring),
+            y_planes * (th + 2) * _WG_M / (b * d * h * w), items, ring, resident,
+        )
+    td, th, tw = _tile(d, h, w, cm, dtype.itemsize)
+    blocks = b * -(-d // td) * -(-h // th) * -(-w // tw)
+    return PairPlan(
+        route, (td, th, tw), blocks,
+        (td + 2) * (th + 2) * (tw + 2) * cm * dtype.itemsize,
+        (td + 2) * (th + 2) * (tw + 2) / (td * th * tw), blocks,
+    )
+
+
+def pack_pair_wgmma(k1: torch.Tensor, k2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``wgmma`` route's weights, bf16, zero in every pad: k1 ``[Cm, Cin,
+    3, 3, 3]`` -> ``[27, ceil(Cin / 16), Cm / 8, 2, 8, 8]`` and k2 ``[Cout,
+    Cm, 3, 3, 3]`` -> ``[27, Cm / 16, N2 / 8, 2, 8, 8]`` with N2 = Cout
+    padded to 8, 16 or 32: per tap and 16 input channels, wgmma's K-major
+    8 x 8 core matrices (``cuda_gband.pack_conv_wgmma``)."""
+    return pack_conv_wgmma(k1, _WG_CM), pack_conv_wgmma(k2, _wg_n2(k2.shape[0]))
+
+
+def pair_operands(k1, scale1, bias1, k2, scale2, bias2, device):
+    """The ``wgmma`` route's operands on ``device``: the packed k1 and k2
+    (:func:`pack_pair_wgmma`) and the f32 scale and bias vectors, each made
+    once per tensor version (``cuda_gband.cached_pack``): a served model
+    packs once, an in-place update repacks."""
+    n2 = _wg_n2(k2.shape[0])
+    with torch.no_grad():
+        k1p = cached_pack(k1, f"pair_k1:{device}", lambda: pack_conv_wgmma(k1.to(device), _WG_CM))
+        k2p = cached_pack(k2, f"pair_k2:{n2}:{device}", lambda: pack_conv_wgmma(k2.to(device), n2))
+        vecs = tuple(
+            cached_pack(v, f"f32:{device}", lambda v=v: v.to(device, torch.float32).contiguous())
+            for v in (scale1, bias1, scale2, bias2)
+        )
+    return (k1p, k2p, *vecs)
 
 
 def fused_conv3d_pair_torch(
@@ -139,9 +200,9 @@ def fused_conv3d_pair_torch(
 def _kernel(route: str):
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib = library("fused_conv3d_pair")
-    if route == "tensor_cores":
-        fn = lib.ecm_fused_conv3d_pair_mma
-        fn.argtypes = [vp] * 9 + [i] * 10 + [vp]
+    if route == "wgmma":
+        fn = lib.ecm_fused_conv3d_pair_wgmma
+        fn.argtypes = [vp] * 9 + [i] * 14 + [ctypes.c_longlong, vp]
     else:
         fn = lib.ecm_fused_conv3d_pair
         fn.argtypes = [i] + [vp] * 9 + [i] * 13 + [vp]
@@ -197,19 +258,22 @@ def fused_conv3d_pair(
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError("x/ctx must be contiguous and 16-byte aligned")
     dev = x.device
-    s1, b1, s2, b2 = (v.to(dev, torch.float32).contiguous() for v in (scale1, bias1, scale2, bias2))
     out = torch.empty(b, d, h, w, cout, dtype=x.dtype, device=dev)
     ctx_ptr = None if ctx is None else ctx.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    plan = pair_plan(x.dtype, b, d, h, w, cin, cm, cout)
-    if plan.route == "tensor_cores":
-        k1p, k2p = pack_pair_mma(k1.to(dev), k2.to(dev))
+    plan = pair_plan(x.dtype, b, d, h, w, cin, cm, cout,
+                     torch.cuda.get_device_properties(dev).multi_processor_count)
+    if plan.route == "wgmma":
+        k1p, k2p, s1, b1, s2, b2 = pair_operands(k1, scale1, bias1, k2, scale2, bias2, dev)
         status = _kernel(plan.route)(
             x.data_ptr(), k1p.data_ptr(), s1.data_ptr(), b1.data_ptr(),
             k2p.data_ptr(), s2.data_ptr(), b2.data_ptr(), ctx_ptr, out.data_ptr(),
-            b, d, h, w, cin, cout, int(relu1), int(relu2), int(residual), plan.tile[0], stream,
+            b, d, h, w, cin, cout, int(relu1), int(relu2), int(residual),
+            plan.tile[1], plan.tile[0], plan.ring, int(plan.resident), plan.blocks, plan.smem_bytes,
+            stream,
         )
     else:
+        s1, b1, s2, b2 = (v.to(dev, torch.float32).contiguous() for v in (scale1, bias1, scale2, bias2))
         k1p = pack_taps(k1, x.dtype, 32).to(dev)
         k2p = pack_taps(k2, x.dtype, 1 if cout == 1 else 32).to(dev)
         status = _kernel(plan.route)(
@@ -226,4 +290,4 @@ def fused_conv3d_pair(
 
 
 fused_conv3d_pair.launches = 0
-fused_conv3d_pair.route_launches = {"tensor_cores": 0, "cuda_cores": 0}
+fused_conv3d_pair.route_launches = {"wgmma": 0, "cuda_cores": 0}

@@ -222,14 +222,14 @@ def _kernel(tensor_cores: bool):
     return fn
 
 
-def pack_conv_wgmma(weight: torch.Tensor) -> torch.Tensor:
+def pack_conv_wgmma(weight: torch.Tensor, cout_pad: int | None = None) -> torch.Tensor:
     """Conv weight ``[O, I, 3, 3, 3]`` -> the tensor-core core's B operand,
     bf16 ``[27, I_pad / 16, O_pad / 8, 2, 8, 8]``: per tap and 16 input
     channels, wgmma's K-major 8 x 8 core matrices ``[o // 8][(i % 16) // 8]
-    [o % 8][i % 8]`` (I_pad = I rounded up to 16, O_pad 16, 32 or 64; zero in
-    the pads)."""
+    [o % 8][i % 8]`` (I_pad = I rounded up to 16, O_pad ``cout_pad`` or else
+    16, 32 or 64; zero in the pads)."""
     o, i = weight.shape[:2]
-    cin_pad, cout_pad = -(-i // 16) * 16, _cout_pad(o)
+    cin_pad, cout_pad = -(-i // 16) * 16, cout_pad or _cout_pad(o)
     kp = weight.to(torch.bfloat16).permute(2, 3, 4, 1, 0).reshape(27, i, o)
     kp = F.pad(kp, (0, cout_pad - o, 0, cin_pad - i))
     return kp.reshape(27, cin_pad // 16, 2, 8, cout_pad // 8, 8).permute(0, 1, 4, 2, 5, 3).contiguous()
@@ -312,7 +312,8 @@ def gband_conv_s1_torch(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=32)
-def _unit_affine(cout: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+def unit_affine(cout: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """A scale of ones and a bias of zeros, f32, made once per (cout, device)."""
     with torch.inference_mode(False):
         return torch.ones(cout, device=device), torch.zeros(cout, device=device)
 
@@ -323,7 +324,7 @@ def _conv_s1(x: torch.Tensor, weight: torch.Tensor, what: str, flip: bool = Fals
     flipped in (d, h, w) and transposed in (in, out)."""
     if x.device.type == "cpu":
         return gband_conv_s1_torch(x, weight.flip(2, 3, 4).transpose(0, 1) if flip else weight)
-    ones, zeros = _unit_affine(weight.shape[1] if flip else weight.shape[0], x.device)
+    ones, zeros = unit_affine(weight.shape[1] if flip else weight.shape[0], x.device)
     return _launch(x, weight, ones, zeros, None, 1, False, what, flip=flip)
 
 

@@ -56,8 +56,9 @@ def test_cost_volume_kernel(dev, dtype, c):
 
 
 # (Cin, Cm, Cout) and shape [B, D, H, W]: the small forms and the odd one on
-# the CUDA cores; the main paths' three forms (tc_*) on the tensor cores, at
-# a shape that crosses every (H, W) tile edge (8 x 16) and D slab (19 -> 2 x 10)
+# the CUDA cores; the main paths' three forms (tc_*) on the wgmma route, at a
+# shape that crosses (H, W) tile edges (2 or 4 rows; W 37 and 131 against
+# tiles of 62) and, with the card's slab plan, D slabs
 PAIR_FORMS = {
     "ctx": ((16, 8, 8), (2, 6, 10, 19)),
     "residual": ((8, 8, 8), (2, 6, 10, 19)),
@@ -66,19 +67,16 @@ PAIR_FORMS = {
     "tc_ctx": ((64, 32, 32), (2, 19, 11, 37)),
     "tc_residual": ((32, 32, 32), (2, 19, 11, 37)),
     "tc_classif": ((32, 32, 1), (2, 19, 11, 37)),
+    "tc_wide_ctx": ((64, 32, 32), (2, 19, 11, 131)),
+    "tc_wide_residual": ((32, 32, 32), (2, 19, 11, 131)),
+    "tc_wide_classif": ((32, 32, 1), (2, 19, 11, 131)),
 }
 
 
-@pytest.mark.parametrize(
-    "form,dtype",
-    [pytest.param(f, dt, id=f"dtype{i}-{f}")
-     for i, dt in enumerate((torch.float32, torch.bfloat16)) for f in ("ctx", "residual", "classif", "odd")]
-    + [pytest.param(f, torch.bfloat16, id=f"dtype1-{f}") for f in ("tc_ctx", "tc_residual", "tc_classif")],
-)
-def test_fused_pair_kernel(dev, form, dtype):
-    g = torch.Generator().manual_seed(1)
+def _pair_case(dev, form, dtype, seed=1):
+    g = torch.Generator().manual_seed(seed)
     (cin, cm, cout), (b, d, h, w) = PAIR_FORMS[form]
-    kind = form.removeprefix("tc_")
+    kind = form.removeprefix("tc_").removeprefix("wide_")
     x = torch.randn(b, d, h, w, cin, generator=g).to(dev, dtype)
     k1 = torch.randn(cm, cin, 3, 3, 3, generator=g) * 0.2
     k2 = torch.randn(cout, cm, 3, 3, 3, generator=g) * 0.2
@@ -86,17 +84,45 @@ def test_fused_pair_kernel(dev, form, dtype):
     s2, b2 = torch.rand(cout, generator=g) + 0.5, torch.randn(cout, generator=g)
     ctx = torch.randn(b, h, w, cout, generator=g).to(dev, dtype) if kind == "ctx" else None
     opts = {"residual": {"relu2": False, "residual": True}, "classif": {"relu2": False}}.get(kind, {})
-    args = [v.to(dev) for v in (x, k1, s1, b1, k2, s2, b2)]
-    route = "tensor_cores" if form.startswith("tc_") else "cuda_cores"
+    return [x] + [v.to(dev) for v in (k1, s1, b1, k2, s2, b2)] + [ctx], opts
+
+
+@pytest.mark.parametrize(
+    "form,dtype",
+    [pytest.param(f, dt, id=f"dtype{i}-{f}")
+     for i, dt in enumerate((torch.float32, torch.bfloat16)) for f in ("ctx", "residual", "classif", "odd")]
+    + [pytest.param(f, torch.bfloat16, id=f"dtype1-{f}") for f in PAIR_FORMS if f.startswith("tc_")],
+)
+def test_fused_pair_kernel(dev, form, dtype):
+    args, opts = _pair_case(dev, form, dtype)
+    (cin, cm, cout), _ = PAIR_FORMS[form]
+    route = "wgmma" if form.startswith("tc_") else "cuda_cores"
     assert pair_route(dtype, cin, cm, cout) == route
     n, by_route = fused_conv3d_pair.launches, dict(fused_conv3d_pair.route_launches)
-    out = fused_conv3d_pair(*args, ctx, **opts)
+    out = fused_conv3d_pair(*args, **opts)
     torch.cuda.synchronize()
     assert fused_conv3d_pair.launches == n + 1
     assert fused_conv3d_pair.route_launches[route] == by_route[route] + 1
-    ref = fused_conv3d_pair_torch(*args, ctx, **opts)
+    ref = fused_conv3d_pair_torch(*args, **opts)
     err = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
     assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-5), err
+
+
+@pytest.mark.parametrize("form", ["tc_ctx", "tc_residual", "tc_classif"])
+def test_fused_pair_kernel_on_a_halo_2_slab(dev, form):
+    """A disp rank's slab: its 6 planes with 2 of each neighbour's on either
+    side. The wgmma kernel on the slab gives the whole volume's outputs on
+    the slab's own planes (the plain version on the whole volume)."""
+    args, opts = _pair_case(dev, form, torch.bfloat16, seed=2)
+    x, ctx = args[0], args[-1]
+    slab = x[:, 4:14].contiguous()
+    n = fused_conv3d_pair.route_launches["wgmma"]
+    out = fused_conv3d_pair(slab, *args[1:-1], ctx, **opts)
+    torch.cuda.synchronize()
+    assert fused_conv3d_pair.route_launches["wgmma"] == n + 1
+    ref = fused_conv3d_pair_torch(x, *args[1:-1], ctx, **opts)[:, 6:12]
+    err = (out[:, 2:-2].float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err <= 2e-2, err
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

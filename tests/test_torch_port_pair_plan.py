@@ -1,26 +1,32 @@
-"""The fused pair's route choice, the tensor-core route's weight packing and
-its tile plan (``ecm_torch/ops/cuda_fused_agg.py``): pure functions of
-dtypes and shapes, which decide what the CUDA kernel is given."""
+"""The fused pair's route choice, the ``wgmma`` route's weight packing, its
+tile plan and its operand cache (``ecm_torch/ops/cuda_fused_agg.py``): pure
+functions of dtypes, shapes and weights, which decide what the CUDA kernel
+is given."""
 
 import pytest
 import torch
 
-from ecm_torch.ops.cuda_fused_agg import pack_pair_mma, pair_plan, pair_route
+from ecm_torch.ops import cuda_fused_agg
+from ecm_torch.ops.cuda_fused_agg import pack_pair_wgmma, pair_operands, pair_plan, pair_route
 
 SMEM_PER_BLOCK = 232_448  # the dynamic shared memory an H100 block may have
+SMS = 132
 
 # the main paths' forms at kitti_infer (48 x 96 x 312 volume): (Cin, Cm, Cout)
 MAIN_FORMS = {"dres0": (64, 32, 32), "dres1": (32, 32, 32), "classif3": (32, 32, 1)}
+# what csrc/fused_conv3d_pair.cu's header states for them: output rows a
+# tile, k1 resident, shared memory a block (the kernel checks the same count)
+MAIN_LAYOUT = {"dres0": (2, False, 216_192), "dres1": (2, True, 225_408), "classif3": (4, True, 229_760)}
 
 
 @pytest.mark.parametrize(
     "dtype,cin,cm,cout,route",
     [
-        (torch.bfloat16, 64, 32, 32, "tensor_cores"),
-        (torch.bfloat16, 32, 32, 32, "tensor_cores"),
-        (torch.bfloat16, 32, 32, 1, "tensor_cores"),
-        (torch.bfloat16, 8, 32, 24, "tensor_cores"),
-        (torch.bfloat16, 40, 32, 8, "tensor_cores"),
+        (torch.bfloat16, 64, 32, 32, "wgmma"),
+        (torch.bfloat16, 32, 32, 32, "wgmma"),
+        (torch.bfloat16, 32, 32, 1, "wgmma"),
+        (torch.bfloat16, 8, 32, 24, "wgmma"),
+        (torch.bfloat16, 40, 32, 8, "wgmma"),
         (torch.float32, 64, 32, 32, "cuda_cores"),
         (torch.float32, 32, 32, 1, "cuda_cores"),
         (torch.bfloat16, 6, 5, 3, "cuda_cores"),
@@ -32,47 +38,123 @@ MAIN_FORMS = {"dres0": (64, 32, 32), "dres1": (32, 32, 32), "classif3": (32, 32,
 )
 def test_route_by_dtype_and_channels(dtype, cin, cm, cout, route):
     assert pair_route(dtype, cin, cm, cout) == route
-    assert pair_plan(dtype, 1, 5, 6, 7, cin, cm, cout).route == route
+    plan = pair_plan(dtype, 1, 5, 6, 7, cin, cm, cout)
+    assert plan.route == route
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
 
 
-@pytest.mark.parametrize("cin,cout", [(64, 32), (32, 1), (40, 24), (8, 8)])
-def test_pack_pair_mma_unpacks_to_the_weights(cin, cout):
+def _decode(packed: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """Read a packed B operand back through the descriptor address formula:
+    per (tap, 16-channel k-step) a block of n x 16 bf16 whose element (r, k)
+    lies at start + (r/8)*SBO + (k/8)*LBO + (r%8)*16 + (k%8)*2 bytes, LBO =
+    128 and SBO = 256 (as the kernel's descriptors say). Returns [27, n, k]."""
+    flat = packed.reshape(-1)
+    ks = k // 16
+    r = torch.arange(n).view(n, 1)
+    kk = torch.arange(16).view(1, 16)
+    inner = (r // 8) * 256 + (kk // 8) * 128 + (r % 8) * 16 + (kk % 8) * 2
+    out = torch.empty(27, n, k, dtype=packed.dtype)
+    for tap in range(27):
+        for s in range(ks):
+            start = (tap * ks + s) * n * 16 * 2
+            out[tap, :, 16 * s:16 * (s + 1)] = flat[(start + inner) // 2]
+    return out
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 32), (32, 1), (40, 24), (8, 8), (16, 16)])
+def test_pack_pair_wgmma_decodes_to_the_weights(cin, cout):
     g = torch.Generator().manual_seed(cin + cout)
     k1 = torch.randn(32, cin, 3, 3, 3, generator=g)
     k2 = torch.randn(cout, 32, 3, 3, 3, generator=g)
-    k1p, k2p = pack_pair_mma(k1, k2)
-    nch, cout_pad = -(-cin // 32), 8 if cout == 1 else cout
+    k1p, k2p = pack_pair_wgmma(k1, k2)
+    cin_pad, n2 = -(-cin // 16) * 16, 8 if cout <= 8 else 16 if cout <= 16 else 32
     assert k1p.dtype == k2p.dtype == torch.bfloat16
-    assert k1p.shape == (3, nch, 9, 32, 40) and k2p.shape == (27, cout_pad, 40)
+    assert k1p.shape == (27, cin_pad // 16, 4, 2, 8, 8) and k2p.shape == (27, 2, n2 // 8, 2, 8, 8)
     assert k1p.is_contiguous() and k2p.is_contiguous()
-    # k1p[kd, c, kh * 3 + kw, o, i] = k1[o, 32 c + i, kd, kh, kw]
-    k1u = k1p[..., :32].reshape(3, nch, 3, 3, 32, 32).permute(4, 1, 5, 0, 2, 3).reshape(32, 32 * nch, 3, 3, 3)
-    assert torch.equal(k1u[:, :cin], k1.bfloat16())
-    assert not k1u[:, cin:].any() and not k1p[..., 32:].any()
-    # k2p[(kd * 3 + kh) * 3 + kw, o, i] = k2[o, i, kd, kh, kw]
-    k2u = k2p[..., :32].reshape(3, 3, 3, cout_pad, 32).permute(3, 4, 0, 1, 2)
-    assert torch.equal(k2u[:cout], k2.bfloat16())
-    assert not k2u[cout:].any() and not k2p[..., 32:].any()
+    # decoded [tap, out channel, in channel] = k[o, i, kd, kh, kw], tap = (kd * 3 + kh) * 3 + kw
+    k1u = _decode(k1p, 32, cin_pad)
+    assert torch.equal(k1u[:, :, :cin], k1.bfloat16().permute(2, 3, 4, 0, 1).reshape(27, 32, cin))
+    assert not k1u[:, :, cin:].any()
+    k2u = _decode(k2p, n2, 32)
+    assert torch.equal(k2u[:, :cout], k2.bfloat16().permute(2, 3, 4, 0, 1).reshape(27, cout, 32))
+    assert not k2u[:, cout:].any()
 
 
 @pytest.mark.parametrize("batch", [1, 8])
 @pytest.mark.parametrize("form", sorted(MAIN_FORMS))
 def test_tile_plan_of_the_main_path(form, batch):
-    """Each main-path form runs the tensor-core route, fits in a block's
-    shared memory, fills the card at batch 1 (two blocks or more per SM of
-    132), and recomputes less of stage 1 than the CUDA-core route's tile."""
+    """Each main-path form runs the wgmma route with the layout the source
+    states, fits in a block's shared memory, gives every SM a work item, and
+    computes stage 1 over the tile's halo, its D slab's two extra planes and
+    the ragged last W tile (312 = 5 x 62 + 2): the stated recompute."""
     cin, cm, cout = MAIN_FORMS[form]
-    plan = pair_plan(torch.bfloat16, batch, 48, 96, 312, cin, cm, cout)
-    assert plan.route == "tensor_cores"
-    assert plan.smem_bytes <= SMEM_PER_BLOCK
-    assert plan.blocks >= 264 * batch
-    assert plan.tile == (16, 8, 16) and plan.blocks == batch * 3 * 12 * 20
-    assert plan.recompute == pytest.approx(10 * 18 / 128 * 18 / 16)
-    assert plan.recompute < pair_plan(torch.float32, batch, 48, 96, 312, cin, cm, cout).recompute
+    d, h, w = 48, 96, 312
+    plan = pair_plan(torch.bfloat16, batch, d, h, w, cin, cm, cout)
+    th, resident, smem = MAIN_LAYOUT[form]
+    assert plan.route == "wgmma"
+    assert (plan.tile[1:], plan.resident, plan.smem_bytes) == ((th, 62), resident, smem)
+    assert plan.smem_bytes <= SMEM_PER_BLOCK and plan.ring == 5
+    sd = plan.tile[0]
+    nsd = -(-d // sd)
+    assert plan.items == batch * nsd * (h // th) * 6 >= SMS
+    assert plan.blocks == SMS
+    assert plan.recompute == pytest.approx((d + 2 * nsd) * (h // th) * 6 * (th + 2) * 64 / (d * h * w))
+    # the slabs chosen at this shape (rounds of 132 blocks x planes an item walks)
+    assert sd == ({1: 12, 8: 48} if form == "classif3" else {1: 16, 8: 48})[batch]
 
 
-@pytest.mark.parametrize("d,sd", [(19, 10), (16, 16), (17, 9), (48, 16), (5, 5), (1, 1)])
-def test_d_slabs_are_even(d, sd):
-    plan = pair_plan(torch.bfloat16, 2, d, 11, 37, 32, 32, 32)
-    assert plan.tile[0] == sd
-    assert plan.blocks == 2 * -(-d // sd) * 2 * 3
+@pytest.mark.parametrize(
+    "d,sms,sd",
+    [(19, 8, 10), (16, 8, 8), (17, 8, 9), (48, 8, 24), (5, 8, 5), (1, 8, 1)],
+)
+def test_d_slabs_are_even(d, sms, sd):
+    """The D slab is an even split that minimises the rounds of blocks times
+    the y planes an item computes (its slab and two)."""
+    plan = pair_plan(torch.bfloat16, 2, d, 11, 37, 32, 32, 32, sms)
+    assert plan.tile == (sd, 2, 62)
+    assert plan.items == 2 * -(-d // sd) * 6 * 1 and plan.blocks == min(plan.items, sms)
+    rounds = -(-plan.items // plan.blocks)
+    for n in range(1, d + 1):
+        other = -(-d // n)
+        items = 2 * n * 6
+        assert rounds * (sd + 2) <= -(-items // min(items, sms)) * (other + 2)
+
+
+@pytest.mark.parametrize("w,ntw", [(62, 1), (63, 2), (124, 2), (131, 3), (312, 6)])
+def test_ragged_w_tiles(w, ntw):
+    """W is cut into tiles of 62 outputs (64 y columns less the halo); the
+    last one takes what is left."""
+    plan = pair_plan(torch.bfloat16, 1, 6, 4, w, 32, 32, 1)
+    assert plan.tile[1:] == (4, 62)
+    assert plan.items == -(-6 // plan.tile[0]) * ntw
+    assert plan.recompute == pytest.approx((6 + 2 * -(-6 // plan.tile[0])) * ntw * 6 * 64 / (6 * 4 * w))
+
+
+def test_pair_operands_pack_once_per_version(monkeypatch):
+    """The pair's packed k1 and k2 and its f32 scale and bias vectors are
+    made once per tensor version: a second call packs nothing, an in-place
+    update of one tensor remakes that one alone."""
+    calls, pack = [], cuda_fused_agg.pack_conv_wgmma
+
+    def counting(weight, cout_pad=None):
+        calls.append(tuple(weight.shape))
+        return pack(weight, cout_pad)
+
+    monkeypatch.setattr(cuda_fused_agg, "pack_conv_wgmma", counting)
+    g = torch.Generator().manual_seed(0)
+    k1, k2 = torch.randn(32, 64, 3, 3, 3, generator=g), torch.randn(1, 32, 3, 3, 3, generator=g)
+    # bf16 vectors, so that the f32 copy is a new tensor
+    s1, b1, s2, b2 = (torch.randn(n, generator=g).bfloat16() for n in (32, 32, 1, 1))
+    first = pair_operands(k1, s1, b1, k2, s2, b2, "cpu")
+    assert len(calls) == 2 and all(v.dtype == torch.float32 for v in first[2:])
+    again = pair_operands(k1, s1, b1, k2, s2, b2, "cpu")
+    assert len(calls) == 2 and all(a is b for a, b in zip(first, again))
+    k1.add_(1.0)
+    third = pair_operands(k1, s1, b1, k2, s2, b2, "cpu")
+    assert calls[2:] == [(32, 64, 3, 3, 3)]
+    assert third[0] is not first[0] and all(a is b for a, b in zip(first[1:], third[1:]))
+    assert torch.equal(third[0], pack(k1, 32))
+    s2.mul_(2.0)
+    fourth = pair_operands(k1, s1, b1, k2, s2, b2, "cpu")
+    assert len(calls) == 3 and fourth[4] is not third[4] and torch.equal(fourth[4], s2.float())
+    assert all(a is b for i, (a, b) in enumerate(zip(third, fourth)) if i != 4)
