@@ -40,16 +40,28 @@
    reports the median ms per forward. The correlation path also takes
    apart its cost map's difference from the plain path on eight pairs
    (``correlation_witness``).
-3. Profiles a steady window of batch-1 forwards of each ECMStereo path
-   under ``ecm_torch.utils.profiling.trace``, read back from the trace file
-   it writes: device time per kernel, the port's kernels against the rest,
-   and the device's idle share of the window; the grouped path must run the
-   conv core 10 times a forward (4 s1 + 3 down + 3 transposed) and the WMMA
-   core it replaced never, and each path the pair's wgmma kernel once per
-   pair launch (grouped 1, standard 3), its CUDA-core kernel and the
-   mma.sync kernel it replaced never. Then ``profiling.timed`` of the same
-   forward.
-4. Trains ``CONFIGS["sceneflow_single"]`` (slice 3, ``TRAIN_SLICE``): 4
+3. Profiles a steady window of batch-1 forwards of each path under
+   ``ecm_torch.utils.profiling.trace``, read back from the trace file it
+   writes: the ECMStereo paths eager and graphed (replays of
+   ``make_infer_fn``'s CUDA graph), the ECMBasic paths graphed. Device time
+   per kernel, the port's kernels against the rest, and the device's idle
+   share of the window; each window must run each of its path's kernels
+   once per launch a forward (the grouped path the conv core 10 times: 4 s1
+   + 3 down + 3 transposed, and the WMMA core it replaced never; the pair's
+   wgmma kernel once per pair launch, grouped 1 and standard 3, its
+   CUDA-core kernel and the mma.sync kernel it replaced never) and copy
+   nothing from the host. Then ``profiling.timed`` of the same forward.
+4. Serves each of the four paths through ``make_infer_fn``, one CUDA graph
+   per input shape (``ecm_torch/train/graphs.py``, the counterpart of the
+   JAX package's ``jax.jit``), at batch 1 and, for the ECMStereo paths, 8:
+   the first call (eager), the second (warm-up and capture) and a replay
+   against the eager forward on the same pair (max|diff| expected 0, gated
+   at 1e-3 px, the regression's limit), the launches the capture counted
+   against the path's a forward, a replay moving no wrapper's count and adding those
+   launches to the replayed count; then the eager and the graphed forward,
+   median of 10 each on the same pairs (CUDA events), each signature's
+   capture time and graph-pool bytes, and item 3's idle shares side by side.
+5. Trains ``CONFIGS["sceneflow_single"]`` (slice 3, ``TRAIN_SLICE``): 4
    pairs at 256x512, max-disp 192, bf16, the grouped dispatch, through
    ``train_loop`` on one fixed synthetic batch, counts 0 just before and
    read just after: ``gband_conv_s1`` 7 forward and 7 input-gradient
@@ -58,7 +70,7 @@
    the same weights and batch, ms per step (median of 10), peak memory and
    a profiled step, whose device-to-device memcpy must stay under 1 ms (the
    cost volumes' closed-form VJP copies no gradient volume).
-5. Runs the command-line drivers (``ecm_torch.cli``) in-process on files it
+6. Runs the command-line interfaces (``ecm_torch.cli``) in-process on files it
    writes to a temporary directory, each with the launch counts set to 0
    just before and read just after: ``train`` (``sceneflow_single``) on a
    SceneFlow-layout tree of 8 pairs at 540x960 for 4 steps, then again to
@@ -70,14 +82,17 @@
    / ``_down`` / ``deconv3d_bn`` / the classif pair / the regression a pair,
    plus 1 of the concat kernel with ``--pallas``); ``submission`` on the 4
    test pairs (375x1242 uint16 PNGs, each within one code of the
-   disparity computed here with the same weights); and ``test_img
+   disparity computed here with the same weights). The eval CLIs serve
+   their pairs of one shape through one CUDA graph: the first pair runs
+   eagerly, the second's warm-up and capture count a pair's launches each,
+   and every later pair adds them to the replayed count (``_pairs``). Then ``test_img
    --synthetic`` as a subprocess with no device flag. It reports the train
    CLI's pairs/s, the DataLoader's own rate, the checkpoint's size and its
    save and restore times, and the submission's ms a pair; and packs the 8
    pairs' 256x512 crops into two TFRecord shards
    (``ecm_torch.data.tfrecord``), reads them back equal and reports the
    host's MB/s each way.
-6. Runs slice 9's data axis (``ecm_torch.parallel``) on the one card. NCCL
+7. Runs slice 9's data axis (``ecm_torch.parallel``) on the one card. NCCL
    takes one rank a card, so two ranks that share it reduce over gloo, which
    takes CUDA tensors:
    - the dry run (``python -m ecm_torch.parallel.dryrun``, the counterpart
@@ -99,7 +114,7 @@
      ecm_torch.cli.train --multihost`` (NCCL at world size 1, DDP) for 2
      steps of ``sceneflow_dp`` on a SceneFlow-layout tree, whose checkpoint
      the single-process ``evaluate`` then restores.
-7. Runs slice 10's disparity axis (``ecm_torch.parallel.halo``) on the one
+8. Runs slice 10's disparity axis (``ecm_torch.parallel.halo``) on the one
    card: four ranks of ``dryrun.launch`` share cuda:0 over gloo, each with
    1/4 of the disparities at every level of the 3D stack:
    - ``CONFIGS["middlebury_disp_sharded"]`` (BASELINE config 4, max-disp
@@ -124,7 +139,7 @@
    peak memory and halo and gather traffic a forward, and the phase's wall
    time. Four ranks on one card measure correctness and memory per rank,
    not scaling.
-8. Trains on slice 11's disparity axis on the one card: four ranks of
+9. Trains on slice 11's disparity axis on the one card: four ranks of
    ``dryrun.launch`` share cuda:0 over gloo as a ``(data 2, disp 2)`` grid,
    each with its 6 pairs and half of the disparities at every level:
    - ``gband_conv_s1`` against its plain version at a rank's halo-padded
@@ -151,7 +166,7 @@
      SceneFlow-layout tree (a finite loss, one checkpoint, rank 0 alone
      printing the mesh), whose checkpoint ``evaluate`` then restores in
      this process.
-9. Runs the JAX package's convergence gate (``benchmarks/overfit_gate.py``)
+10. Runs the JAX package's convergence gate (``benchmarks/overfit_gate.py``)
    through the port's train CLI, ``ecm_torch.cli.train.main(["--config",
    preset, "--savemodel", dir])`` in-process on cuda:0, for both presets,
    ``overfit_gate`` (f32) and ``overfit_gate_grouped`` (bf16), each 600
@@ -164,14 +179,14 @@
    prints the first (step 50) and last logged loss and EPE, the wall time
    and the median ms a step, beside the TPU's result of
    ``benchmarks/OVERFIT.json`` as context.
-10. Reports ``ecm_torch.utils.profiling`` on the grouped batch-1
+11. Reports ``ecm_torch.utils.profiling`` on the grouped batch-1
    ``kitti_infer`` forward: item 3's trace and ``timed`` of the forward
    beside the serving phase's CUDA-event median; the analytic FLOPs a pair
    (``flops_stereo_parts``, which over-counts) and the convolutions' FLOPs
    that ``torch.utils.flop_counter.FlopCounterMode`` counts over one
    forward of the plain path, each with the TFLOP/s it implies at the
    grouped path's batch-8 ms a pair.
-11. Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+12. Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits nonzero without the last line.
@@ -219,13 +234,13 @@ from ecm_torch.ops import cuda_fused_agg as pairk
 from ecm_torch.ops import cuda_gband as gbk
 from ecm_torch.ops import cuda_gdeconv as gdk
 from ecm_torch.ops import cuda_regression as regk
-from ecm_torch.ops.launches import COUNTERS, read_counts, reset_counts
+from ecm_torch.ops.launches import COUNTERS, read_counts, read_replayed, reset_counts
 from ecm_torch.parallel import dryrun
 from ecm_torch.train import checkpoint as ckpt_lib
 from ecm_torch.train.loop import to_device, train_loop
 from ecm_torch.train.loss import stereo_loss
 from ecm_torch.train.state import create_train_state, make_optimizer
-from ecm_torch.train.steps import make_train_step
+from ecm_torch.train.steps import make_infer_fn, make_train_step
 from ecm_torch.utils import profiling
 
 B, H, W, MAX_DISP, C = 1, 384, 1248, 192, 32
@@ -743,6 +758,28 @@ def correlation_witness(model, plain) -> dict:
     return dict(seeds=rows, cost4_rel_max=worst)
 
 
+# the four serving paths: path -> (model, overrides, kernel launches a
+# forward, batch 8 too, fields of the preset replaced)
+SERVE_PATHS = {
+    "slice1_standard": ("stackhourglass", SLICE_OVERRIDES, dict(
+        cost_volume_concat=1, fused_conv3d_pair=3, fused_upsample_softargmin=1), True, {}),
+    "slice2_grouped": ("stackhourglass", SLICE2_OVERRIDES, dict(
+        cost_volume_concat=1, conv3d_bn_s1=4, conv3d_bn_down=3, deconv3d_bn=3,
+        fused_conv3d_pair=1, fused_upsample_softargmin=1), True, {}),
+    "basic": ("basic", dict(use_pallas=True, regress_mode="fused"), dict(
+        cost_volume_concat=1, fused_upsample_softargmin=1), False, {}),
+    "basic_correlation": ("basic", dict(use_pallas=True, regress_mode="fused"), dict(
+        cost_volume_correlation=1, fused_upsample_softargmin=1), False, dict(cost_mode="correlation")),
+}
+
+
+def build_path(path: str):
+    """``path``'s model at full width, random weights from seed 0."""
+    name, overrides, _, _, fields = SERVE_PATHS[path]
+    cfg = dataclasses.replace(CONFIGS["kitti_infer"].model, name=name, **fields)
+    return cfg.build(generator=torch.Generator().manual_seed(0), **overrides)
+
+
 def serve(path: str, name: str, overrides: dict, per_forward: dict, batch8: bool,
           cost_tol: float = COST4_REL_TOL, **fields) -> dict:
     """Serve one path: every launch count set to 0 just before, read just
@@ -833,32 +870,62 @@ PORT_SYMBOLS = (
 )
 
 
-def profile_forward(path: str, overrides: dict, runs: int = 3) -> dict:
-    """``runs`` batch-1 forwards under ``ecm_torch.utils.profiling.trace``
-    after a warm-up, read back from the trace file it writes: device time
-    per kernel (ms per forward), the port's kernels against everything else
-    (cuDNN, elementwise, copies), and the idle share of the window (1 -
-    union of device intervals / host wall time, profiler overhead
-    included). Then ``profiling.timed`` of the same forward."""
-    model = CONFIGS["kitti_infer"].model.build(generator=torch.Generator().manual_seed(0), **overrides)
+# each counted kernel by the symbol of its instantiations (the conv core's
+# template's first argument is its mode: 0 transposed, 1 stride 1, 2 stride 2)
+KERNEL_SYMBOLS = {
+    "cost_volume_concat": "concat_kernel", "cost_volume_correlation": CORRELATION,
+    "conv3d_bn_s1": f"{CONV_WGMMA}<1", "conv3d_bn_down": f"{CONV_WGMMA}<2", "deconv3d_bn": f"{CONV_WGMMA}<0",
+    "fused_conv3d_pair": PAIR_WGMMA, "fused_upsample_softargmin": REGRESSION,
+}
+
+
+def profile_forward(path: str, graphed: bool = False, runs: int = 3) -> dict:
+    """``runs`` batch-1 forwards of ``path`` (eager, or ``graphed``: replays
+    of ``make_infer_fn``'s graph) under ``ecm_torch.utils.profiling.trace``
+    after two calls (graphed: an eager call, then the capture), read back
+    from the trace file it writes: device time per kernel (ms per forward), the port's kernels
+    against everything else (cuDNN, elementwise, copies), each counted
+    kernel's launches, the host-to-device copies, and the idle share of the
+    window (1 - union of device intervals / host wall time, profiler
+    overhead included); profiled again (``PROFILE_ATTEMPTS``) where the
+    trace misses a kernel, and failed at once where it holds one kernel too
+    many. Then ``profiling.timed`` of the same forward."""
+    model = build_path(path)
+    forward = make_infer_fn(model) if graphed else model
+    per_forward = SERVE_PATHS[path][2]
+    want = {k: per_forward.get(k, 0) * runs for k in KERNEL_SYMBOLS}
     reqs = [pairs(1, 400 + i) for i in range(runs + 1)]
-    logdir = OUT_DIR / "trace" / path
-    shutil.rmtree(logdir, ignore_errors=True)
+    logdir = OUT_DIR / "trace" / (path + ("_graphed" if graphed else ""))
     with torch.inference_mode():
-        model(*reqs[0])
+        forward(*reqs[0])
+        forward(*reqs[0])
         torch.cuda.synchronize()
-        with profiling.trace(logdir=str(logdir)):
-            t0 = time.perf_counter()
-            for left, right in reqs[1:]:
-                model(left, right)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        timed_ms = profiling.timed(model, *reqs[0]) * 1e3
-    (trace_file,) = logdir.glob("*.pt.trace.json")
-    # the kernels and copies (not the annotations the profiler also puts on
-    # the device timeline), in microseconds
-    events = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in json.loads(trace_file.read_text())["traceEvents"]
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            shutil.rmtree(logdir, ignore_errors=True)
+            with profiling.trace(logdir=str(logdir)):
+                t0 = time.perf_counter()
+                for left, right in reqs[1:]:
+                    forward(left, right)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            (trace_file,) = logdir.glob("*.pt.trace.json")
+            # the kernels and copies (not the annotations the profiler also
+            # puts on the device timeline), in microseconds
+            events = [(e["name"], e["ts"], e["ts"] + e["dur"])
+                      for e in json.loads(trace_file.read_text())["traceEvents"]
+                      if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+            kernels = {k: sum(sym in e[0] for e in events) for k, sym in KERNEL_SYMBOLS.items()}
+            if kernels == want:
+                break
+            # a dropped event (see PROFILE_ATTEMPTS) misses a kernel; it never
+            # adds one, nor a replaced kernel or a host-to-device copy
+            over = {k: n for k, n in kernels.items() if n > want[k]}
+            over.update({sym: n for sym in (PAIR_CORES, PAIR_OLD_MMA, OLD_CONV_MMA, "HtoD")
+                         if (n := sum(sym in e[0] for e in events))})
+            if over:
+                raise AssertionError(f"profile {path}: traced {over} beyond {want} for {runs} forwards")
+            log(f"  profile {path}: traced kernels {kernels} for {runs} forwards (attempt {attempt})")
+        timed_ms = profiling.timed(forward, *reqs[0]) * 1e3
     by_name, port = {}, {}
     for name, start, stop in events:
         ms = (stop - start) / 1e3
@@ -870,10 +937,12 @@ def profile_forward(path: str, overrides: dict, runs: int = 3) -> dict:
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    del model
+    del model, forward
     torch.cuda.empty_cache()
     return dict(
-        path=path, runs=runs, device_events=len(events), trace_file=str(trace_file.relative_to(OUT_DIR)),
+        path=path, graphed=graphed, runs=runs, device_events=len(events),
+        trace_file=str(trace_file.relative_to(OUT_DIR)), kernels=kernels, kernels_expected=want,
+        htod_copies=sum("HtoD" in e[0] for e in events),
         pair_kernels={sym: sum(sym in e[0] for e in events) for sym in (PAIR_WGMMA, PAIR_CORES, PAIR_OLD_MMA)},
         conv_kernels={sym: sum(sym in e[0] for e in events) for sym in (CONV_WGMMA, OLD_CONV_MMA)},
         wall_ms_per_forward=wall_ms / runs, device_busy_ms_per_forward=busy_us / 1e3 / runs,
@@ -881,6 +950,87 @@ def profile_forward(path: str, overrides: dict, runs: int = 3) -> dict:
         ms_per_forward_by_group={k: v / runs for k, v in sorted(port.items(), key=lambda kv: -kv[1])},
         top_kernels_ms_per_forward=[(k[:90], v / runs) for k, v in top],
     )
+
+
+def check_profile(prof: dict) -> None:
+    """A profiled window ran each of its path's kernels once per launch a
+    forward (the pair on its wgmma route, never its CUDA-core kernel or the
+    mma.sync kernel it replaced; the conv core, never the WMMA core it
+    replaced) and copied nothing from the host."""
+    if prof["kernels"] != prof["kernels_expected"]:
+        raise AssertionError(f"{prof['trace_file']}: kernels {prof['kernels']}, expected {prof['kernels_expected']}")
+    per, runs = SERVE_PATHS[prof["path"]][2], prof["runs"]
+    if prof["pair_kernels"] != {PAIR_WGMMA: per.get("fused_conv3d_pair", 0) * runs, PAIR_CORES: 0, PAIR_OLD_MMA: 0}:
+        raise AssertionError(f"{prof['trace_file']}: pair kernels {prof['pair_kernels']}")
+    convs = sum(per.get(k, 0) for k in ("conv3d_bn_s1", "conv3d_bn_down", "deconv3d_bn"))
+    if prof["conv_kernels"] != {CONV_WGMMA: convs * runs, OLD_CONV_MMA: 0}:
+        raise AssertionError(f"{prof['trace_file']}: conv kernels {prof['conv_kernels']}")
+    if prof["htod_copies"]:
+        raise AssertionError(f"{prof['trace_file']}: {prof['htod_copies']} host-to-device copies in the window")
+
+
+def graphs_phase(card: str, profiled: dict) -> dict:
+    """Serving through ``make_infer_fn``'s CUDA graphs (``ecm_torch/train/
+    graphs.py``) on the four paths (see the module's docstring, item 4)."""
+    t_phase = time.perf_counter()
+    out = {}
+    for path, (_, _, per_forward, batch8, _) in SERVE_PATHS.items():
+        model = build_path(path)
+        infer = make_infer_fn(model)
+        want = {k: per_forward.get(k, 0) for k in COUNTERS}
+        res = out[path] = {}
+        for batch in (1, 8) if batch8 else (1,):
+            req = pairs(batch, 800 + batch)
+            graphs_before = len(infer.graphs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first = infer(*req)  # the signature's first sighting: eager
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            second = infer(*req)  # the second: warm-up and capture
+            torch.cuda.synchronize()
+            first_s, second_s = t1 - t0, time.perf_counter() - t1
+            if len(infer.graphs) != graphs_before + 1:
+                raise AssertionError(f"graphs {path} b{batch}: {len(infer.graphs)} graphs after two calls")
+            captured = next(reversed(infer.graphs.values()))
+            if captured.launches != want:
+                raise AssertionError(f"graphs {path} b{batch}: captured launches {captured.launches}, expected {want}")
+            reset_counts()
+            replay = infer(*req)
+            torch.cuda.synchronize()
+            if read_counts() != dict.fromkeys(COUNTERS, 0) or read_replayed() != want:
+                raise AssertionError(f"graphs {path} b{batch}: a replay counted {read_counts()}, "
+                                     f"replayed {read_replayed()}, expected {want} replayed")
+            with torch.inference_mode():
+                eager = model(*req)[-1]
+            diff = {"replay": (replay - eager).abs().max().item(), "first_call": (first - eager).abs().max().item(),
+                    "capturing_call": (second - eager).abs().max().item()}
+            if not max(diff.values()) <= REGRESSION_TOL_PX or not torch.isfinite(replay).all():
+                raise AssertionError(f"graphs {path} b{batch}: graphed disparity off the eager one by {diff} px")
+            reqs = [pairs(batch, 900 + i) for i in range(RUNS + 1)]
+            with torch.inference_mode():
+                it = iter(reqs)
+                eager_runs = times_ms(lambda: model(*next(it)))
+            it = iter(reqs)
+            graphed_runs = times_ms(lambda: infer(*next(it)))
+            res[f"b{batch}"] = dict(
+                eager_ms=statistics.median(eager_runs), graphed_ms=statistics.median(graphed_runs),
+                eager_runs_ms=eager_runs, graphed_runs_ms=graphed_runs, max_abs_diff_px=diff,
+                capture_ms=captured.capture_ms, first_call_s=first_s, capturing_call_s=second_s,
+                pool_bytes=captured.pool_bytes,
+                launches_per_replay={k: n for k, n in captured.launches.items() if n},
+            )
+            log(f"phase graphs: {path} b{batch}: eager {res[f'b{batch}']['eager_ms']:.2f} ms, graphed "
+                f"{res[f'b{batch}']['graphed_ms']:.2f} ms a forward (medians of {RUNS}); capture "
+                f"{captured.capture_ms:.1f} ms, first call {first_s:.2f} s, capturing call {second_s:.2f} s, "
+                f"pool {captured.pool_bytes} bytes; "
+                f"max|graphed - eager| {diff} px [{card}]")
+        res["idle_share"] = {"eager": profiled.get(path, {}).get("idle_share"),
+                             "graphed": profiled[path + "_graphed"]["idle_share"]}
+        del model, infer, first, second, replay, eager, reqs
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
 
 
 # the seven stride-1 convs of the full-resolution stack that the grouped
@@ -1103,10 +1253,11 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def drive(name: str, cli, argv: list[str], expected: dict) -> tuple[dict, str]:
+def drive(name: str, cli, argv: list[str], expected: dict, replayed: dict | None = None) -> tuple[dict, str]:
     """``cli.main(argv)`` in-process, the launch counts set to 0 just before
-    and read just after and held to ``expected`` (0 for a kernel not named).
-    Returns ({launches, wall_s}, what it printed)."""
+    and read just after and held to ``expected``, and the launches of CUDA
+    graph replays to ``replayed`` (0 for a kernel not named). Returns
+    ({launches, replayed, wall_s}, what it printed)."""
     log(f"  cli {name}: python -m {cli.__name__} {' '.join(argv)}")
     tee = _Tee(sys.stdout)
     torch.cuda.synchronize()
@@ -1116,11 +1267,12 @@ def drive(name: str, cli, argv: list[str], expected: dict) -> tuple[dict, str]:
         cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts()
+    launches, ran = read_counts(), read_replayed()
     want = {k: expected.get(k, 0) for k in COUNTERS}
-    if launches != want:
-        raise AssertionError(f"cli {name}: launches {launches}, expected {want}")
-    return dict(launches=launches, wall_s=wall), tee.copy.getvalue()
+    want_ran = {k: (replayed or {}).get(k, 0) for k in COUNTERS}
+    if launches != want or ran != want_ran:
+        raise AssertionError(f"cli {name}: launches {launches} and replayed {ran}, expected {want} and {want_ran}")
+    return dict(launches=launches, replayed=ran, wall_s=wall), tee.copy.getvalue()
 
 
 def _steps(n: int) -> dict:
@@ -1128,8 +1280,13 @@ def _steps(n: int) -> dict:
 
 
 def _pairs(n: int, pallas: bool = False) -> dict:
+    """An eval CLI's launches over ``n`` pairs of one shape, which it serves
+    through one CUDA graph: the first pair runs eagerly, the second warms
+    up and is captured (a pair's launches each; its disparity is the
+    warm-up's), and each later pair replays them."""
     per = dict(CLI_EVAL_PER_PAIR, cost_volume_concat=1) if pallas else CLI_EVAL_PER_PAIR
-    return {k: v * n for k, v in per.items()}
+    return dict(expected={k: (1 if n < 2 else 3) * v for k, v in per.items()},
+                replayed={k: v * max(n - 2, 0) for k, v in per.items()})
 
 
 def loader_rate(specs: list, batches: int = 24) -> dict:
@@ -1225,7 +1382,7 @@ def check_submission(kt: str, ck: str, outdir: Path) -> float:
 
 def cli_phase(card: str, root: Path) -> dict:
     """The command-line drivers on files under ``root`` (see the module's
-    docstring, item 5). Returns the runs and the trees' paths."""
+    docstring, item 6). Returns the runs and the trees' paths."""
     t_phase = time.perf_counter()
     runs = {}
     sf, kt = write_cli_trees(root)
@@ -1263,14 +1420,14 @@ def cli_phase(card: str, root: Path) -> dict:
     _, val = kitti.list_kitti(kt)
     for name, extra in (("cli_evaluate", []), ("cli_evaluate_pallas", ["--pallas"])):
         runs[name], out = drive(name[4:], cli_evaluate, [
-            "--dataset", "kitti2015", "--datapath", kt, "--loadmodel", ck2, *extra], _pairs(len(val), bool(extra)))
+            "--dataset", "kitti2015", "--datapath", kt, "--loadmodel", ck2, *extra], **_pairs(len(val), bool(extra)))
         metrics = json.loads(out.strip().splitlines()[-1])
         if metrics.get("num_pairs") != len(val) or not all(math.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"evaluate metrics {metrics}")
         runs[name]["metrics"] = metrics
 
     runs["cli_submission"], out = drive("submission", cli_submission, [
-        "--datapath", kt, "--loadmodel", ck2, "--outdir", str(outdir)], _pairs(CLI_KITTI_PAIRS))
+        "--datapath", kt, "--loadmodel", ck2, "--outdir", str(outdir)], **_pairs(CLI_KITTI_PAIRS))
     ms = [float(line.split()[-2]) for line in out.splitlines() if line.endswith(" ms")]
     if len(ms) != CLI_KITTI_PAIRS:
         raise AssertionError(f"submission printed {len(ms)} times for {CLI_KITTI_PAIRS} pairs")
@@ -1471,7 +1628,7 @@ def nccl_world_one(root: Path, sf: str, kt: str) -> dict:
     logged = json.loads(Path(ck, "metrics.jsonl").read_text().splitlines()[-1])
     _, val = kitti.list_kitti(kt)
     evaluated, out = drive("evaluate (the multihost checkpoint)", cli_evaluate, [
-        "--dataset", "kitti2015", "--datapath", kt, "--loadmodel", str(ck)], _pairs(len(val)))
+        "--dataset", "kitti2015", "--datapath", kt, "--loadmodel", str(ck)], **_pairs(len(val)))
     if f"loaded checkpoint step {PAR_CLI_STEPS}" not in out:
         raise AssertionError("evaluate did not restore the multihost checkpoint")
     metrics = json.loads(out.strip().splitlines()[-1])
@@ -1482,7 +1639,7 @@ def nccl_world_one(root: Path, sf: str, kt: str) -> dict:
 
 def parallel_phase(card: str, gen, sf: str, kt: str) -> tuple[dict, dict, dict, dict]:
     """Slice 9's path, the data axis, on the one card (see the module's
-    docstring, item 6), the NCCL train CLI on the cli phase's trees.
+    docstring, item 7), the NCCL train CLI on the cli phase's trees.
     Returns the phase's record, and the global batch, the start weights and
     the one-process reference, which the disp_train phase reuses."""
     t_phase = time.perf_counter()
@@ -1662,7 +1819,7 @@ def disp_cli(root: Path, head_scale: float) -> dict:
         raise AssertionError(f"evaluate --mesh-disp {DISP_RANKS}: rank 0 alone must print the mesh: {run.stdout}")
     sharded = json.loads(run.stdout.strip().splitlines()[-1])
     one, out = drive("evaluate (one process)", cli_evaluate, [*args, "--mesh-disp", "1"],
-                     _pairs(DISP_CLI_SCENES, pallas=True))
+                     **_pairs(DISP_CLI_SCENES, pallas=True))
     metrics = json.loads(out.strip().splitlines()[-1])
     diff = {k: abs(sharded[k] - v) for k, v in metrics.items()}
     log(f"  disp evaluate: {DISP_RANKS} ranks {sharded}; one process {metrics}; wall {wall:.1f} s")
@@ -1712,7 +1869,7 @@ def gloo_cuda_probe(root: Path) -> dict:
 
 def disp_phase(card: str) -> dict:
     """Slice 10's path, the disparity axis (see the module's docstring,
-    item 7): the ranks' forwards against one process's, then the CLI."""
+    item 8): the ranks' forwards against one process's, then the CLI."""
     t_phase = time.perf_counter()
     cuda = torch.device("cuda")
     unscaled = dryrun.disp_eval(disp_case("f32", False, DISP_F32_H, DISP_F32_W, 22), None, cuda)
@@ -1822,7 +1979,7 @@ def disp_train_cli(sf: str, kt: str, root: Path) -> dict:
         raise AssertionError(f"train --mesh-disp {DTRAIN_CLI_DISP}: logged loss {logged['loss']}")
     _, val = kitti.list_kitti(kt)
     evaluated, out = drive("evaluate (the disp-trained checkpoint)", cli_evaluate, [
-        "--dataset", "kitti2015", "--datapath", kt, "--loadmodel", str(ck)], _pairs(len(val)))
+        "--dataset", "kitti2015", "--datapath", kt, "--loadmodel", str(ck)], **_pairs(len(val)))
     if f"loaded checkpoint step {PAR_CLI_STEPS}" not in out:
         raise AssertionError("evaluate did not restore the disp-trained checkpoint")
     metrics = json.loads(out.strip().splitlines()[-1])
@@ -1833,7 +1990,7 @@ def disp_train_cli(sf: str, kt: str, root: Path) -> dict:
 
 def disp_train_phase(card: str, gen, batch: dict, start: dict, ref: dict, sf: str, kt: str) -> dict:
     """Slice 11's path, training on the disparity axis (see the module's
-    docstring, item 8)."""
+    docstring, item 9)."""
     t_phase = time.perf_counter()
     slab_rel = {planes: check_gband_rank_shape(gen, planes) for planes in DTRAIN_SLAB_PLANES}
     crop_ms = crop_copy_ms(gen)
@@ -1943,7 +2100,7 @@ def overfit_phase(card: str, root: Path) -> dict:
 
 def profiling_phase(card: str, served: dict, profiled: dict) -> dict:
     """``ecm_torch.utils.profiling`` on the card (see the module's
-    docstring, item 10): the grouped path's profiled window (``trace`` and
+    docstring, item 11): the grouped path's profiled window (``trace`` and
     ``timed``, ``profile_forward``) beside the serving median, and the
     formula's FLOPs against ``FlopCounterMode``'s."""
     from torch.utils.flop_counter import FlopCounterMode
@@ -2040,33 +2197,20 @@ def main() -> int:
             f"plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}) [{card}]")
 
     paths = {
-        "slice1_standard": serve("slice1_standard", "stackhourglass", SLICE_OVERRIDES, dict(
-            cost_volume_concat=1, fused_conv3d_pair=3, fused_upsample_softargmin=1), batch8=True),
-        "slice2_grouped": serve("slice2_grouped", "stackhourglass", SLICE2_OVERRIDES, dict(
-            cost_volume_concat=1, conv3d_bn_s1=4, conv3d_bn_down=3, deconv3d_bn=3,
-            fused_conv3d_pair=1, fused_upsample_softargmin=1), batch8=True),
-        "basic": serve("basic", "basic", dict(use_pallas=True, regress_mode="fused"), dict(
-            cost_volume_concat=1, fused_upsample_softargmin=1), batch8=False),
-        "basic_correlation": serve("basic_correlation", "basic", dict(use_pallas=True, regress_mode="fused"), dict(
-            cost_volume_correlation=1, fused_upsample_softargmin=1), batch8=False,
-            cost_tol=COST4_CORR_REL_TOL, cost_mode="correlation"),
+        path: serve(path, name, overrides, per_forward, batch8,
+                    COST4_CORR_REL_TOL if fields.get("cost_mode") == "correlation" else COST4_REL_TOL, **fields)
+        for path, (name, overrides, per_forward, batch8, fields) in SERVE_PATHS.items()
     }
     for path, result in paths.items():
         log(f"phase serving {path} [{card}]: " + json.dumps(result))
     profiled = {}
-    for path, overrides, pairs_per_forward in (
-        ("slice2_grouped", SLICE2_OVERRIDES, 1), ("slice1_standard", SLICE_OVERRIDES, 3),
-    ):
-        prof = profiled[path] = profile_forward(path, overrides)
-        log(f"phase profile {path} [{card}]: " + json.dumps(prof))
-        # the paths' pairs run on the wgmma route: its kernel once per
-        # launch, the CUDA-core kernel and the old mma.sync kernel never
-        if prof["pair_kernels"] != {PAIR_WGMMA: pairs_per_forward * prof["runs"], PAIR_CORES: 0, PAIR_OLD_MMA: 0}:
-            raise AssertionError(f"{path}: pair kernels in the profile {prof['pair_kernels']}")
-        # the grouped path's convs run the conv core: 4 s1 + 3 down + 3 transposed
-        convs = 10 if path == "slice2_grouped" else 0
-        if prof["conv_kernels"] != {CONV_WGMMA: convs * prof["runs"], OLD_CONV_MMA: 0}:
-            raise AssertionError(f"{path}: conv kernels in the profile {prof['conv_kernels']}")
+    for path in SERVE_PATHS:
+        for graphed in (False, True) if SERVE_PATHS[path][0] == "stackhourglass" else (True,):
+            prof = profiled[path + ("_graphed" if graphed else "")] = profile_forward(path, graphed)
+            log(f"phase profile {path}{' graphed' if graphed else ''} [{card}]: " + json.dumps(prof))
+            check_profile(prof)
+    graphed = graphs_phase(card, profiled)
+    log("phase graphs [" + card + "]: " + json.dumps(graphed))
     trained = train(card)
     log(f"phase train {TRAIN_SLICE} [{card}]: " + json.dumps(trained))
     paths["train_sceneflow_single"] = trained

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ecm_torch.ops.cuda_gband import gband_conv_s1
+from ecm_torch.ops.cuda_gband import gband_conv_s1, hold
 from ecm_torch.parallel.halo import slab_down, slab_s1, slab_up
 from ecm_torch.parallel.sharding import active_mesh, reduction_mesh, use_mesh
 
@@ -211,6 +211,7 @@ def fold_bn(bn: nn.modules.batchnorm._BatchNorm) -> tuple[torch.Tensor, torch.Te
     kept = bn.__dict__.get("_folded")
     if kept is None or kept[0] != key:
         kept = bn.__dict__["_folded"] = (key, *_fold_bn(*tensors))
+    hold(kept[1], kept[2])  # for a graph being captured: the entry may be replaced
     return kept[1], kept[2]
 
 

@@ -265,6 +265,10 @@ def fused_conv3d_pair(
                      torch.cuda.get_device_properties(dev).multi_processor_count)
     if plan.route == "wgmma":
         k1p, k2p, s1, b1, s2, b2 = pair_operands(k1, scale1, bias1, k2, scale2, bias2, dev)
+        # the C entry encodes x's TMA tensor map on the host with x's address
+        # and passes it by value: a CUDA graph captured here freezes it, which
+        # is right only because a graph is replayed on its own buffers alone
+        # (train/graphs.py)
         status = _kernel(plan.route)(
             x.data_ptr(), k1p.data_ptr(), s1.data_ptr(), b1.data_ptr(),
             k2p.data_ptr(), s2.data_ptr(), b2.data_ptr(), ctx_ptr, out.data_ptr(),

@@ -26,6 +26,7 @@ to cuDNN, as it goes to XLA outside any Pallas kernel in JAX.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -144,6 +145,31 @@ def conv_plan(
 
 _PACKED = WeakIdKeyDictionary()
 
+# The keep lists of the CUDA graph captures in progress (train/graphs.py). A
+# captured graph reads what cached_pack and layers.fold_bn hand out by
+# address, and those caches replace an entry (a new version, another scale,
+# another grad mode) whether or not a graph still reads the old one.
+_HOLDERS: list[list] = []
+
+
+def hold(*objs) -> None:
+    """Keep ``objs`` alive as long as the graph being captured, if any."""
+    for keep in _HOLDERS:
+        keep.extend(objs)
+
+
+@contextlib.contextmanager
+def holding():
+    """Yields a list that collects, inside the block, everything given to
+    :func:`hold`: a captured graph keeps it, so that no cache can free what
+    the graph reads."""
+    keep: list = []
+    _HOLDERS.append(keep)
+    try:
+        yield keep
+    finally:
+        _HOLDERS.pop()
+
 
 def _stamp(t: torch.Tensor) -> tuple:
     """Address and version of t (an inference tensor, which keeps no
@@ -157,16 +183,19 @@ def cached_pack(weight: torch.Tensor, variant: str, make, scale: torch.Tensor | 
     cache is keyed by the weight tensor itself (held weakly), its
     ``data_ptr()`` and ``_version``, and the scale's identity and version. An
     in-place update (an optimizer step, ``load_state_dict``) repacks; a
-    served model packs once."""
+    served model packs once. The pack is also held for a graph being
+    captured (:func:`hold`)."""
     stamp = (weight.device, _stamp(weight), None if scale is None else _stamp(scale))
     entries = _PACKED.get(weight)
     if entries is None:
         entries = _PACKED[weight] = {}
     hit = entries.get(variant)
     if hit is not None and hit[0] == stamp and hit[1] is scale:
-        return hit[2]
-    packed = make()
-    entries[variant] = (stamp, scale, packed)
+        packed = hit[2]
+    else:
+        packed = make()
+        entries[variant] = (stamp, scale, packed)
+    hold(packed)
     return packed
 
 
@@ -311,9 +340,10 @@ def gband_conv_s1_torch(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return F.conv3d(x.movedim(-1, 1), weight.to(x.dtype), padding=1).movedim(1, -1)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.cache
 def unit_affine(cout: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """A scale of ones and a bias of zeros, f32, made once per (cout, device)."""
+    """A scale of ones and a bias of zeros, f32, made once per (cout, device)
+    and never evicted: a captured CUDA graph reads them by address."""
     with torch.inference_mode(False):
         return torch.ones(cout, device=device), torch.zeros(cout, device=device)
 

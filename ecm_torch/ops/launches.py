@@ -1,6 +1,11 @@
 """The launch counts of the CUDA kernels' wrappers: each wrapper adds one
 to its count where it launches its kernel (a CPU tensor launches nothing).
-A caller sets them to 0 just before a path and reads them just after."""
+A caller sets them to 0 just before a path and reads them just after.
+
+A CUDA graph's replay (``train/graphs.py``) runs no Python, so no wrapper
+counts it: each replay adds the launches that its capture counted to a
+count of its own, :func:`read_replayed`, which :func:`reset_counts` also
+sets to 0."""
 
 from __future__ import annotations
 
@@ -24,10 +29,24 @@ COUNTERS = {
 }
 
 
+_replayed = dict.fromkeys(COUNTERS, 0)
+
+
 def reset_counts() -> None:
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
+    _replayed.update(dict.fromkeys(COUNTERS, 0))
 
 
 def read_counts() -> dict[str, int]:
     return {k: getattr(fn, attr) for k, (fn, attr) in COUNTERS.items()}
+
+
+def add_replayed(counts: dict[str, int]) -> None:
+    for k, n in counts.items():
+        _replayed[k] += n
+
+
+def read_replayed() -> dict[str, int]:
+    """The launches that graph replays ran since the last reset."""
+    return dict(_replayed)

@@ -4,6 +4,12 @@ The same contraction as ``ecm_tpu/ops/upsample.py`` (not ``F.interpolate``),
 so reduced-precision inputs round at the same places: a linear resize along
 axis n is ``out = M @ x`` with a fixed ``[n_out, n_in]`` half-pixel-centre,
 edge-clamped weight matrix. Upsampling and identity only, as the model uses.
+
+The matrix is made with numpy once per size and copied to a device once per
+``(n_in, n_out, device, dtype)`` (:func:`resize_matrix`): a forward makes no
+host-to-device copy, which would block the host until the card drains and
+cannot be captured in a CUDA graph. In JAX the matrix is a constant under
+``jit``.
 """
 
 from __future__ import annotations
@@ -33,8 +39,25 @@ def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
     return m
 
 
+# (n_in, n_out, device, dtype) -> the matrix there. Never evicted: a captured
+# CUDA graph reads a matrix by its address, so it must outlive every graph.
+_ON_DEVICE: dict[tuple, torch.Tensor] = {}
+
+
+def resize_matrix(n_in: int, n_out: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_resize_matrix` on ``device`` in ``dtype``, copied there once.
+    Made outside inference mode, so that training can save it for the
+    backward."""
+    key = (n_in, n_out, device, dtype)
+    mat = _ON_DEVICE.get(key)
+    if mat is None:
+        with torch.inference_mode(False):
+            mat = _ON_DEVICE[key] = torch.from_numpy(_resize_matrix(n_in, n_out)).to(device, dtype)
+    return mat
+
+
 def _contract(x: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
-    mat = torch.from_numpy(_resize_matrix(x.shape[axis], n_out)).to(x.device, x.dtype)
+    mat = resize_matrix(x.shape[axis], n_out, x.device, x.dtype)
     return torch.matmul(x.movedim(axis, -1), mat.T).movedim(-1, axis)
 
 

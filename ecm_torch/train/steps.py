@@ -1,6 +1,9 @@
 """Train, eval and inference steps (port of ``ecm_tpu/train/steps.py``).
 
-PyTorch runs eagerly, so a step is a plain function; each puts the model in
+PyTorch runs eagerly, so the train step is a plain function; the eval step
+and the inference function are captured once per input signature into a
+CUDA graph on the card (``train/graphs.py``), the counterpart of their
+``jax.jit``. Each puts the model in
 the mode it needs (``train()``: batch-statistics BatchNorm, every head;
 ``eval()``: running statistics, the last head). The model's own dtype casts
 (bf16 activations, f32 parameters and statistics) are the mixed precision;
@@ -37,6 +40,7 @@ from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
 from ecm_torch.parallel.sharding import Mesh, reduction_mesh, replicate, use_mesh
+from ecm_torch.train.graphs import GraphedForward
 from ecm_torch.train.loss import stereo_loss
 from ecm_torch.train.metrics import disparity_metrics
 from ecm_torch.train.state import TrainState
@@ -101,23 +105,33 @@ def make_train_step(model: nn.Module, max_disp: int, mesh: Mesh | None = None):
 
 
 def make_eval_step(model: nn.Module, max_disp: int):
-    """``(state, batch) -> (disp [B, H, W], metrics)`` in eval mode."""
+    """``(state, batch) -> (disp [B, H, W], metrics)`` in eval mode. On CUDA
+    tensors the forward and the metrics are one CUDA graph per input
+    signature (``train/graphs.py``), as ``ecm_tpu``'s step is one ``jit``."""
 
     @torch.inference_mode()
-    def eval_step(state: TrainState, batch: dict[str, torch.Tensor]):
+    def eval_forward(left: torch.Tensor, right: torch.Tensor, gt: torch.Tensor):
         model.eval()
-        disp = model(batch["left"], batch["right"])[-1]
-        return disp, disparity_metrics(disp, batch["disparity"], max_disp)
+        disp = model(left, right)[-1]
+        return disp, disparity_metrics(disp, gt, max_disp)
 
+    graphed = GraphedForward(eval_forward, model)
+
+    def eval_step(state: TrainState, batch: dict[str, torch.Tensor]):
+        return graphed(batch["left"], batch["right"], batch["disparity"])
+
+    eval_step.graphed = graphed
     return eval_step
 
 
 def make_infer_fn(model: nn.Module):
-    """``(left, right) -> disp [B, H, W]`` in eval mode, for serving."""
+    """``(left, right) -> disp [B, H, W]`` in eval mode, for serving. On CUDA
+    tensors one CUDA graph per input signature (``train/graphs.py``), as
+    ``ecm_tpu``'s is one ``jit``."""
 
     @torch.inference_mode()
     def infer(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
         model.eval()
         return model(left, right)[-1]
 
-    return infer
+    return GraphedForward(infer, model)

@@ -4,9 +4,10 @@ change, parent.
     git archive <parent> | tar -x -C build/parent
     python3 scripts/serve_ab.py --parent build/parent
 
-Each turn runs this script again with ``--one`` in a fresh process from the
-root of that checkout, so that each builds and imports its own
-``ecm_torch``: it serves ``kitti_infer``'s two ECMStereo paths at full
+Each turn runs that checkout's own copy of this script with ``--one``, in
+a fresh process from the checkout's root, so that each builds and imports
+its own ``ecm_torch`` and calls its own ``chip_smoke`` as that checkout
+defines it: it serves ``kitti_infer``'s two ECMStereo paths at full
 width (``chip_smoke.serve``: grouped and standard, batch 1 and 8, launch
 counts and the cost map against the plain path checked) and profiles a
 batch-1 window of each (``chip_smoke.profile_forward``). Prints one JSON
@@ -43,8 +44,8 @@ def one() -> dict:
     out = {"tree": os.getcwd(), "card": cs.nvidia_smi("name,power.limit"), "build_s": time.time() - t0}
     out["grouped"] = cs.serve("slice2_grouped", "stackhourglass", cs.SLICE2_OVERRIDES, GROUPED, batch8=True)
     out["standard"] = cs.serve("slice1_standard", "stackhourglass", cs.SLICE_OVERRIDES, STANDARD, batch8=True)
-    for path, overrides in (("slice2_grouped", cs.SLICE2_OVERRIDES), ("slice1_standard", cs.SLICE_OVERRIDES)):
-        out["profile_" + path] = cs.profile_forward(path, overrides)
+    for path in ("slice2_grouped", "slice1_standard"):
+        out["profile_" + path] = cs.profile_forward(path)
     return out
 
 
@@ -58,10 +59,10 @@ def main() -> int:
         return 0
     if not args.parent:
         parser.error("--parent is required")
-    me = Path(__file__).resolve()
     turns = []
     for name, root in (("parent", args.parent), ("change", "."), ("change", "."), ("parent", args.parent)):
-        run = subprocess.run([sys.executable, str(me), "--one"], cwd=root, capture_output=True, text=True)
+        script = Path(root, "scripts", "serve_ab.py").resolve()
+        run = subprocess.run([sys.executable, str(script), "--one"], cwd=root, capture_output=True, text=True)
         line = next((l for l in run.stdout.splitlines() if l.startswith("SERVE ")), None)
         if run.returncode or line is None:
             sys.stderr.write(run.stdout[-4000:] + run.stderr[-4000:])
