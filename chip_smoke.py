@@ -63,29 +63,41 @@
    capture time and graph-pool bytes, and item 3's idle shares side by side.
 5. Trains ``CONFIGS["sceneflow_single"]`` (slice 3, ``TRAIN_SLICE``): 4
    pairs at 256x512, max-disp 192, bf16, the grouped dispatch, through
-   ``train_loop`` on one fixed synthetic batch, counts 0 just before and
-   read just after: ``gband_conv_s1`` 7 forward and 7 input-gradient
-   launches a step and no eval kernel; the loss finite and falling. Then
-   one step of the grouped path against one of the standard (cuDNN) path on
-   the same weights and batch, ms per step (median of 10), peak memory and
-   a profiled step, whose device-to-device memcpy must stay under 1 ms (the
-   cost volumes' closed-form VJP copies no gradient volume).
+   ``train_loop`` on one fixed synthetic batch with ``make_train_step``,
+   one CUDA graph per batch signature since slice 15 (the first step eager,
+   the second captured, the rest replayed), counts 0 just before and read
+   just after: ``gband_conv_s1`` 7 forward and 7 input-gradient launches a
+   step, counted by the wrappers for the first two steps and as replayed
+   launches for the rest, and no eval kernel; the loss finite and falling.
+   Then graphed and eager (``graphed=False``) steps in one call: ms per
+   step (median of 10 each), peak memory, a profiled step of each (idle
+   share; 14 ``gband_conv_s1`` kernels; device-to-device memcpy under 1 ms:
+   the cost volumes' closed-form VJP copies no gradient volume); five
+   graphed steps against five eager ones from one seed with cuDNN
+   deterministic, a learning-rate drop crossed during the replays (every
+   metric, parameter, buffer and Adam tensor equal, or within twice the
+   spread of a second eager run), with the capture's ms and pool bytes;
+   then one step of the grouped path against one of the standard (cuDNN)
+   path on the same weights and batch.
 6. Runs the command-line interfaces (``ecm_torch.cli``) in-process on files it
    writes to a temporary directory, each with the launch counts set to 0
    just before and read just after: ``train`` (``sceneflow_single``) on a
    SceneFlow-layout tree of 8 pairs at 540x960 for 4 steps, then again to
    step 6, which must auto-resume from step 4 and leave checkpoints 4 and 6
-   (``gband_conv_s1`` 7 + 7 launches a step, no eval kernel); ``finetune``
-   from that checkpoint on a KITTI 2015-layout tree (4 training pairs at
-   375x1242, uint16 ground truth) for 2 steps; ``evaluate`` on the KITTI
+   (``gband_conv_s1`` 7 + 7 launches a step, no eval kernel; each run's
+   train step one CUDA graph, ``_steps``); ``finetune`` from that checkpoint
+   on a KITTI 2015-layout tree (4 training pairs at 375x1242, uint16
+   ground truth) for 4 steps, its validation eval every 2 (the preset's
+   interval replaced for the run), the last after two replayed train steps,
+   within 1e-3 of ``evaluate`` on the checkpoint it wrote; ``evaluate`` on the KITTI
    validation split (finite metrics; 4/3/3/1/1 launches of ``conv3d_bn_s1``
    / ``_down`` / ``deconv3d_bn`` / the classif pair / the regression a pair,
    plus 1 of the concat kernel with ``--pallas``); ``submission`` on the 4
    test pairs (375x1242 uint16 PNGs, each within one code of the
    disparity computed here with the same weights). The eval CLIs serve
    their pairs of one shape through one CUDA graph: the first pair runs
-   eagerly, the second's warm-up and capture count a pair's launches each,
-   and every later pair adds them to the replayed count (``_pairs``). Then ``test_img
+   eagerly, the second's warm-up counts a pair's launches and its capture
+   none, and every later pair adds them to the replayed count (``_pairs``). Then ``test_img
    --synthetic`` as a subprocess with no device flag. It reports the train
    CLI's pairs/s, the DataLoader's own rate, the checkpoint's size and its
    save and restore times, and the submission's ms a pair; and packs the 8
@@ -174,7 +186,8 @@
    ``--maxdisp`` (default 192) overrides the presets' max-disp (48, 64), as
    ``ecm_tpu``'s CLI does, so both train the grouped dispatch at max-disp
    192: ``gband_conv_s1`` 7 + 7 launches a step (counts 0 just before and
-   read just after each run). Each must end
+   read just after each run), 598 of its 600 steps replays of its train
+   step's CUDA graph. Each must end
    with an EPE below 2.0 px at step 600 and log only finite losses; it
    prints the first (step 50) and last logged loss and EPE, the wall time
    and the median ms a step, beside the TPU's result of
@@ -269,6 +282,7 @@ CORR_WITNESS_SEEDS = (1, 2, 3, 4, 5, 6, 7, 8)
 TRAIN_LOSS_REL_TOL = 2e-2  # one grouped step against one cuDNN step, bf16
 TRAIN_GRAD_COSINE = 0.99  # the seven kernel-conv weight gradients, same comparison
 TRAIN_STEPS = 20  # train_loop steps on one fixed batch; the loss must fall
+GRAPH_CHECK_STEPS = 5  # graphed steps held against eager ones: 1 eager, 1 captured, 3 replays
 # device-to-device copies in a profiled train step (12.75 ms when autograd
 # cloned the gradient volume at each of the plain builder's 96 slice
 # assignments; the closed-form VJP copies none of it)
@@ -853,6 +867,7 @@ def serve(path: str, name: str, overrides: dict, per_forward: dict, batch8: bool
 PAIR_WGMMA, PAIR_CORES, PAIR_OLD_MMA = "fused_pair_wgmma_kernel", "fused_pair_kernel", "fused_pair_mma_kernel"
 REGRESSION, CORRELATION = "upsample_softargmin_kernel", "correlation_kernel"
 CONV_WGMMA, OLD_CONV_MMA = "conv3d_wgmma_kernel", "conv3d_mma_kernel"
+CONV_CUDA_CORES = "conv3d_bn_kernel"  # the f32 route of conv3d_bn.cu (deconv3d_bn_kernel contains it)
 # kernels none of whose instantiations may spill: source -> (symbol, count).
 # The conv core: (modes) x Cout_pad 16, 32, 64; the pair: output rows a tile 2
 # x N2 8, 16, 32, and 4 x N2 8; the regression: f32, bf16; the correlation: f32, bf16 x C
@@ -1099,11 +1114,14 @@ def compare_train_paths(batch: dict) -> dict:
     return result
 
 
-def profile_train_step(state, step, batch) -> dict:
-    """One train step under torch.profiler: the device's idle share, and its
-    time in the gband_conv_s1 kernel (the first 7 launches of the step are
-    the forwards, the next 7 the input gradients: one stream runs them in
-    order), in cuDNN's weight-gradient kernels, and in the rest."""
+def profile_train_step(state, step, batch, symbol: str = f"{CONV_WGMMA}<1") -> dict:
+    """One train step under torch.profiler, after one unprofiled step: the
+    device's idle share, and its time in the gband_conv_s1 kernel (the first
+    7 launches of the step are the forwards, the next 7 the input
+    gradients: one stream, or one graph captured from one stream, runs them
+    in order), in cuDNN's weight-gradient kernels, and in the rest.
+    ``symbol``: the kernel's, the conv core's stride-1 mode in bf16, the
+    CUDA-core kernel in f32."""
     from torch.profiler import ProfilerActivity, profile
 
     step(state, batch)
@@ -1118,7 +1136,7 @@ def profile_train_step(state, step, batch) -> dict:
     for e in events:
         ms = (e.time_range.end - e.time_range.start) / 1e3
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
-        if f"{CONV_WGMMA}<1" in e.name:
+        if symbol in e.name:
             label = "gband_conv_s1 forward" if gband < 7 else "gband_conv_s1 input grad"
             gband += 1
         elif "wgrad" in e.name.lower():
@@ -1145,10 +1163,86 @@ def profile_train_step(state, step, batch) -> dict:
     )
 
 
+def _train_tensors(state) -> dict[str, torch.Tensor]:
+    """Every parameter, buffer, Adam moment and Adam step count by name."""
+    out = dict(state.model.state_dict())
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    for p in state.optimizer.params:
+        for k, v in state.optimizer.adam.state[p].items():
+            out[f"{names[id(p)]}:{k}"] = v
+    return out
+
+
+def compare_graphed_to_eager(batch: dict) -> dict:
+    """``GRAPH_CHECK_STEPS`` graphed steps against as many eager ones
+    (``graphed=False``) from three states built from one seed, on one batch,
+    with ``torch.backends.cudnn.deterministic`` on, the learning rate
+    dropping to 1e-4 at step 4 (steps 3 on are replays): each step's
+    metrics and then every parameter, buffer, Adam moment and step count
+    equal to the eager run's within twice its difference from a second eager
+    run (0 where eager is deterministic: bit for bit), as
+    ``tests/test_torch_port_train_graphs_cuda.py`` holds them. Also the
+    graphed state's first (eager) and second (warm-up and capture) calls'
+    wall times and the capture's ms and pool."""
+    cfg = CONFIGS[TRAIN_SLICE]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs, walls = {}, []
+        for name in ("graphed", "eager", "eager_again"):
+            model = cfg.model.build(generator=torch.Generator().manual_seed(0))
+            state = create_train_state(model, make_optimizer(cfg.train.lr, [(3, 1e-4)]))
+            step = make_train_step(model, cfg.model.max_disp, graphed=name == "graphed")
+            metrics = []
+            for i in range(GRAPH_CHECK_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics.append(step(state, batch)[1])
+                torch.cuda.synchronize()
+                if name == "graphed":
+                    walls.append(time.perf_counter() - t0)
+            if name == "graphed":
+                (captured,) = step.graphed.graphs.values()
+                if captured.replays != GRAPH_CHECK_STEPS - 2:
+                    raise AssertionError(f"train graphs: {captured.replays} replays of {GRAPH_CHECK_STEPS} steps")
+            runs[name] = dict(metrics=metrics, tensors=_train_tensors(state))
+            del model, state, step
+        out, worst = {}, {}
+        for part in ("metrics", "tensors"):
+            if part == "metrics":
+                flat = {n: {f"{i}:{k}": v for i, m in enumerate(r["metrics"]) for k, v in m.items()}
+                        for n, r in runs.items()}
+            else:
+                flat = {n: r["tensors"] for n, r in runs.items()}
+            diff = {k: (flat["graphed"][k].double() - flat["eager"][k].double()).abs().max().item()
+                    for k in flat["eager"]}
+            spread = {k: (flat["eager_again"][k].double() - flat["eager"][k].double()).abs().max().item()
+                      for k in flat["eager"]}
+            bad = {k: (diff[k], spread[k]) for k in diff if diff[k] > 2 * spread[k]}
+            worst[part] = sorted(((diff[k], spread[k], k) for k in diff), reverse=True)[:3]
+            out[part] = dict(compared=len(diff), beyond_twice_the_spread=len(bad),
+                             max_graphed_vs_eager=max(diff.values()), max_eager_spread=max(spread.values()),
+                             nonzero_spread=[k for k in spread if spread[k]][:10])
+            if bad:
+                raise AssertionError(f"train graphs: {len(bad)} {part} beyond twice the eager spread: "
+                                     f"{list(bad.items())[:5]}")
+        out.update(first_call_s=walls[0], capturing_call_s=walls[1], replay_walls_s=walls[2:],
+                   capture_ms=captured.capture_ms, pool_bytes=captured.pool_bytes, worst=worst)
+        log("  train graphed vs eager: " + json.dumps(out))
+        del runs, captured
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
 def train(card: str) -> dict:
     """Slice 3's path: ``train_loop`` over ``TRAIN_STEPS`` steps of one fixed
-    synthetic batch, counts 0 just before and read just after; then the
-    grouped/standard comparison, the step timing and a profiled step."""
+    synthetic batch through ``make_train_step`` (slice 15: one CUDA graph per
+    batch signature, the first step eager, the second captured, the rest
+    replayed), counts 0 just before and read just after; then graphed and
+    eager steps timed in one call, each profiled, the graphed steps against
+    eager ones, and the grouped/standard comparison."""
     cfg = CONFIGS[TRAIN_SLICE]
     model = cfg.model.build(generator=torch.Generator().manual_seed(0))
     if model.resolve_layout(torch.device("cuda")) != "grouped":
@@ -1162,32 +1256,55 @@ def train(card: str) -> dict:
     state = train_loop(state, step, itertools.repeat(fixed), TRAIN_STEPS, log_every=1,
                        metrics_path=str(metrics_path))
     torch.cuda.synchronize()
-    launches = read_counts()
-    expected = {k: 0 for k in COUNTERS}
-    expected.update(gband_conv_s1=7 * TRAIN_STEPS, gband_conv_s1_input_grad=7 * TRAIN_STEPS)
-    if launches != expected:
-        raise AssertionError(f"train: launches {launches} for {TRAIN_STEPS} steps, expected {expected}")
+    counted, replayed = read_counts(), read_replayed()
+    launches = {k: counted[k] + replayed[k] for k in COUNTERS}
+    want = _steps(TRAIN_STEPS)
+    if counted != want["expected"] or replayed != want["replayed"]:
+        raise AssertionError(f"train: launches {counted} and replayed {replayed} for {TRAIN_STEPS} steps, "
+                             f"expected {want}")
+    (captured,) = step.graphed.graphs.values()
     losses = [json.loads(line)["loss"] for line in metrics_path.read_text().splitlines()]
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"train: losses {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train: loss did not fall on a fixed batch: {losses}")
-    log(f"  train: {TRAIN_STEPS} steps, launches {launches}, gband_conv_s1 copies {gbk.gband_conv_s1.copies}; "
-        f"losses {losses}")
+    log(f"  train: {TRAIN_STEPS} steps, launches {counted} and replayed {replayed}, gband_conv_s1 copies "
+        f"{gbk.gband_conv_s1.copies}; losses {losses}")
 
     batch = to_device(fixed, torch.device("cuda"))
+    eager = make_train_step(model, cfg.model.max_disp, graphed=False)
     torch.cuda.reset_peak_memory_stats()
-    runs = times_ms(lambda: step(state, batch))
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    ms = statistics.median(runs)
+    graphed_runs = times_ms(lambda: step(state, batch))
+    graphed_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    eager_runs = times_ms(lambda: eager(state, batch))
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    reserved = torch.cuda.memory_reserved() / 1e9
+    if captured.replays != TRAIN_STEPS - 2 + RUNS + 1 or len(step.graphed.graphs) != 1:
+        raise AssertionError(f"train: {captured.replays} replays, {len(step.graphed.graphs)} graphs")
     profile = profile_train_step(state, step, batch)
-    del state, model, step
+    profile_eager = profile_train_step(state, eager, batch)
+    ms, eager_ms = statistics.median(graphed_runs), statistics.median(eager_runs)
+    capture_ms, pool_bytes = captured.capture_ms, captured.pool_bytes
+    del state, model, step, eager, captured
     torch.cuda.empty_cache()
+    graphed_vs_eager = compare_graphed_to_eager(batch)
     compare = compare_train_paths(to_device(train_batch(2), torch.device("cuda")))
+    log(f"phase train: graphed {ms:.2f} ms a step ({cfg.data.global_batch / ms * 1e3:.2f} pairs/s), eager "
+        f"{eager_ms:.2f} ms ({cfg.data.global_batch / eager_ms * 1e3:.2f} pairs/s), medians of {RUNS}; idle share "
+        f"graphed {profile['idle_share']:.3f}, eager {profile_eager['idle_share']:.3f}; capture "
+        f"{graphed_vs_eager['capture_ms']:.1f} ms, pool {graphed_vs_eager['pool_bytes']} bytes, first call "
+        f"{graphed_vs_eager['first_call_s']:.2f} s, capturing call {graphed_vs_eager['capturing_call_s']:.2f} s; "
+        f"peak allocated graphed {graphed_peak:.2f} GB, eager {eager_peak:.2f} GB, reserved {reserved:.2f} GB "
+        f"[{card}]")
     return dict(
-        card=card, steps=TRAIN_STEPS, launches=launches, losses=losses,
-        ms_per_step=ms, runs_ms=runs, pairs_per_s=cfg.data.global_batch / ms * 1e3,
-        peak_mem_gb=peak, profile=profile, grouped_vs_standard=compare,
+        card=card, steps=TRAIN_STEPS, launches=launches, counted=counted, replayed=replayed, losses=losses,
+        ms_per_step=ms, runs_ms=graphed_runs, pairs_per_s=cfg.data.global_batch / ms * 1e3,
+        eager_ms_per_step=eager_ms, eager_runs_ms=eager_runs, eager_pairs_per_s=cfg.data.global_batch / eager_ms * 1e3,
+        peak_mem_gb=graphed_peak, eager_peak_mem_gb=eager_peak, reserved_gb=reserved,
+        loop_capture_ms=capture_ms, loop_pool_bytes=pool_bytes,
+        profile=profile, profile_eager=profile_eager, graphed_vs_eager=graphed_vs_eager,
+        grouped_vs_standard=compare,
     )
 
 
@@ -1196,7 +1313,7 @@ def train(card: str) -> dict:
 # on testing/)
 CLI_SF_PAIRS, CLI_SF_SIZE = 8, (540, 960)
 CLI_KITTI_PAIRS, CLI_KITTI_SIZE = 4, (375, 1242)
-CLI_TRAIN_STEPS, CLI_RESUME_STEPS, CLI_FINETUNE_STEPS = 4, 6, 2
+CLI_TRAIN_STEPS, CLI_RESUME_STEPS, CLI_FINETUNE_STEPS, CLI_FINETUNE_EVAL_EVERY = 4, 6, 4, 2
 # the grouped eval path's launches a pair (evaluate, submission); --pallas
 # adds the concat kernel
 CLI_EVAL_PER_PAIR = dict(conv3d_bn_s1=4, conv3d_bn_down=3, deconv3d_bn=3, fused_conv3d_pair=1,
@@ -1257,7 +1374,8 @@ def drive(name: str, cli, argv: list[str], expected: dict, replayed: dict | None
     """``cli.main(argv)`` in-process, the launch counts set to 0 just before
     and read just after and held to ``expected``, and the launches of CUDA
     graph replays to ``replayed`` (0 for a kernel not named). Returns
-    ({launches, replayed, wall_s}, what it printed)."""
+    ({launches (counted plus replayed: what ran), counted, replayed,
+    wall_s}, what it printed)."""
     log(f"  cli {name}: python -m {cli.__name__} {' '.join(argv)}")
     tee = _Tee(sys.stdout)
     torch.cuda.synchronize()
@@ -1267,26 +1385,52 @@ def drive(name: str, cli, argv: list[str], expected: dict, replayed: dict | None
         cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, ran = read_counts(), read_replayed()
+    counted, ran = read_counts(), read_replayed()
     want = {k: expected.get(k, 0) for k in COUNTERS}
     want_ran = {k: (replayed or {}).get(k, 0) for k in COUNTERS}
-    if launches != want or ran != want_ran:
-        raise AssertionError(f"cli {name}: launches {launches} and replayed {ran}, expected {want} and {want_ran}")
-    return dict(launches=launches, replayed=ran, wall_s=wall), tee.copy.getvalue()
+    if counted != want or ran != want_ran:
+        raise AssertionError(f"cli {name}: launches {counted} and replayed {ran}, expected {want} and {want_ran}")
+    return dict(launches={k: counted[k] + ran[k] for k in COUNTERS}, counted=counted, replayed=ran,
+                wall_s=wall), tee.copy.getvalue()
+
+
+def _graphed(per: dict, n: int) -> dict:
+    """The launches of ``n`` calls of one signature through one CUDA graph,
+    ``per`` a call: the first call runs eagerly, the second warms up (a
+    call's launches) and is captured (none), and each later call replays
+    them. ``expected`` is what the wrappers count, ``replayed`` what the
+    replays add."""
+    return dict(expected={k: min(n, 2) * per.get(k, 0) for k in COUNTERS},
+                replayed={k: max(n - 2, 0) * per.get(k, 0) for k in COUNTERS})
 
 
 def _steps(n: int) -> dict:
-    return dict(gband_conv_s1=7 * n, gband_conv_s1_input_grad=7 * n)
+    """A train run's launches over ``n`` steps of one batch shape in one
+    process: 7 + 7 ``gband_conv_s1`` a step, through one CUDA graph."""
+    return _graphed(dict(gband_conv_s1=7, gband_conv_s1_input_grad=7), n)
 
 
 def _pairs(n: int, pallas: bool = False) -> dict:
     """An eval CLI's launches over ``n`` pairs of one shape, which it serves
-    through one CUDA graph: the first pair runs eagerly, the second warms
-    up and is captured (a pair's launches each; its disparity is the
-    warm-up's), and each later pair replays them."""
-    per = dict(CLI_EVAL_PER_PAIR, cost_volume_concat=1) if pallas else CLI_EVAL_PER_PAIR
-    return dict(expected={k: (1 if n < 2 else 3) * v for k, v in per.items()},
-                replayed={k: v * max(n - 2, 0) for k, v in per.items()})
+    through one CUDA graph (the second pair's disparity is its warm-up's)."""
+    return _graphed(dict(CLI_EVAL_PER_PAIR, cost_volume_concat=1) if pallas else CLI_EVAL_PER_PAIR, n)
+
+
+def _plus(*runs: dict) -> dict:
+    """The sum of ``_graphed`` expectations."""
+    return {part: {k: sum(r[part][k] for r in runs) for k in COUNTERS} for part in ("expected", "replayed")}
+
+
+@contextlib.contextmanager
+def preset_train(name: str, **fields):
+    """``CONFIGS[name]`` with its train fields replaced inside (the CLIs read
+    the presets when they run)."""
+    saved = CONFIGS[name]
+    CONFIGS[name] = dataclasses.replace(saved, train=dataclasses.replace(saved.train, **fields))
+    try:
+        yield
+    finally:
+        CONFIGS[name] = saved
 
 
 def loader_rate(specs: list, batches: int = 24) -> dict:
@@ -1393,10 +1537,10 @@ def cli_phase(card: str, root: Path) -> dict:
 
     train_args = ["--config", TRAIN_SLICE, "--datapath", sf, "--savemodel", ck]
     runs["cli_train"], out = drive("train", cli_train, [*train_args, "--steps", str(CLI_TRAIN_STEPS)],
-                                   _steps(CLI_TRAIN_STEPS))
+                                   **_steps(CLI_TRAIN_STEPS))
     runs["cli_train_resume"], out = drive(
         "train (resume)", cli_train, [*train_args, "--steps", str(CLI_RESUME_STEPS)],
-        _steps(CLI_RESUME_STEPS - CLI_TRAIN_STEPS))
+        **_steps(CLI_RESUME_STEPS - CLI_TRAIN_STEPS))
     if f"auto-resumed from step {CLI_TRAIN_STEPS}" not in out:
         raise AssertionError("train did not auto-resume from its checkpoint")
     if ckpt_lib.make_manager(ck).all_steps() != [CLI_TRAIN_STEPS, CLI_RESUME_STEPS]:
@@ -1410,14 +1554,24 @@ def cli_phase(card: str, root: Path) -> dict:
     loader = loader_rate(specs)
     records = tfrecord_rate(specs, root)
 
-    runs["cli_finetune"], out = drive("finetune", cli_finetune, [
-        "--datapath", kt, "--loadmodel", ck, "--steps", str(CLI_FINETUNE_STEPS), "--batch", "4",
-        "--savemodel", ck2], _steps(CLI_FINETUNE_STEPS))
+    # finetune's validation eval every CLI_FINETUNE_EVAL_EVERY steps (the
+    # preset's is its checkpoint interval, 1000): at step 2 on the weights of
+    # the step its train graph was captured at, at step 4 after two replays
+    _, val = kitti.list_kitti(kt)
+    evals = CLI_FINETUNE_STEPS // CLI_FINETUNE_EVAL_EVERY
+    with preset_train("kitti_finetune", eval_every=CLI_FINETUNE_EVAL_EVERY):
+        runs["cli_finetune"], out = drive("finetune", cli_finetune, [
+            "--datapath", kt, "--loadmodel", ck, "--steps", str(CLI_FINETUNE_STEPS), "--batch", "4",
+            "--savemodel", ck2], **_plus(_steps(CLI_FINETUNE_STEPS), *[_pairs(len(val))] * evals))
     if f"loaded pretrained weights (step {CLI_RESUME_STEPS})" not in out:
         raise AssertionError("finetune did not load the train checkpoint")
+    validated = {r["step"]: r["eval"] for r in map(json.loads, Path(ck2, "metrics.jsonl").read_text().splitlines())
+                 if "eval" in r}
+    if sorted(validated) != list(range(CLI_FINETUNE_EVAL_EVERY, CLI_FINETUNE_STEPS + 1, CLI_FINETUNE_EVAL_EVERY)):
+        raise AssertionError(f"finetune validated at steps {sorted(validated)}")
+    runs["cli_finetune"]["validation"] = validated
     ckpt = checkpoint_times(ck2)
 
-    _, val = kitti.list_kitti(kt)
     for name, extra in (("cli_evaluate", []), ("cli_evaluate_pallas", ["--pallas"])):
         runs[name], out = drive(name[4:], cli_evaluate, [
             "--dataset", "kitti2015", "--datapath", kt, "--loadmodel", ck2, *extra], **_pairs(len(val), bool(extra)))
@@ -1425,6 +1579,16 @@ def cli_phase(card: str, root: Path) -> dict:
         if metrics.get("num_pairs") != len(val) or not all(math.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"evaluate metrics {metrics}")
         runs[name]["metrics"] = metrics
+    # finetune's last validation, after replayed train steps, against evaluate
+    # on the checkpoint those steps wrote: a stale eval graph (no version bump
+    # after the replays) would serve the weights of step 2
+    last = validated[CLI_FINETUNE_STEPS]
+    off = {k: abs(last[k] - runs["cli_evaluate"]["metrics"][k]) for k in last}
+    runs["cli_finetune"]["validation_vs_evaluate"] = off
+    log(f"  cli finetune: validation at step {CLI_FINETUNE_STEPS} {last}, evaluate on its checkpoint "
+        f"{runs['cli_evaluate']['metrics']}: |diff| {off}")
+    if not max(off.values()) <= REGRESSION_TOL_PX:
+        raise AssertionError(f"finetune's validation after replayed steps is off evaluate's by {off}")
 
     runs["cli_submission"], out = drive("submission", cli_submission, [
         "--datapath", kt, "--loadmodel", ck2, "--outdir", str(outdir)], **_pairs(CLI_KITTI_PAIRS))
@@ -1529,7 +1693,7 @@ def par_reference(batch: dict, start: dict | None = None, dtype: torch.dtype | N
     else:
         model.load_state_dict(start)
     state = create_train_state(model, make_optimizer(cfg.train.lr))
-    step = make_train_step(model, cfg.model.max_disp)
+    step = make_train_step(model, cfg.model.max_disp, graphed=False)  # eager, as each rank's step is
     cuda_batch = to_device(batch, torch.device("cuda"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2052,6 +2216,40 @@ OVERFIT_EPE_PX = 2.0  # benchmarks/overfit_gate.py:31
 # the TPU's step-50 and step-600 EPE (benchmarks/OVERFIT.json), printed as
 # context only: the reference's result, not a number of the port
 OVERFIT_TPU_EPE = {"overfit_gate": (3.9488, 0.1414), "overfit_gate_grouped": (5.8788, 0.1614)}
+# the port's eager step's step-600 EPE on this phase's H100 runs before its
+# train step was captured (PERF.md §6), printed as context
+OVERFIT_EAGER_EPE = {"overfit_gate": "0.34-0.60", "overfit_gate_grouped": "1.1561"}
+
+
+def time_train_step(cfg, batch_size: int, crop: tuple[int, int]) -> dict:
+    """One state of ``cfg`` (a resolved ``ExperimentConfig``) stepping on one
+    synthetic batch: ``RUNS`` graphed steps (after the first, eager, and
+    the second, captured) and ``RUNS`` eager ones in one call, each
+    profiled, with the capture's ms and pool and each side's peak."""
+    model = cfg.model.build(generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, make_optimizer(cfg.train.lr))
+    batch = to_device(make_batch(3, batch_size, *crop), torch.device("cuda"))
+    graphed = make_train_step(model, cfg.model.max_disp)
+    eager = make_train_step(model, cfg.model.max_disp, graphed=False)
+    graphed(state, batch)
+    torch.cuda.reset_peak_memory_stats()
+    graphed_runs = times_ms(lambda: graphed(state, batch))  # the first is the capture
+    graphed_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    eager_runs = times_ms(lambda: eager(state, batch))
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    (captured,) = graphed.graphed.graphs.values()
+    out = dict(
+        ms_per_step=statistics.median(graphed_runs), eager_ms_per_step=statistics.median(eager_runs),
+        runs_ms=graphed_runs, eager_runs_ms=eager_runs, capture_ms=captured.capture_ms,
+        pool_bytes=captured.pool_bytes, peak_mem_gb=graphed_peak, eager_peak_mem_gb=eager_peak,
+    )
+    symbol = f"{CONV_WGMMA}<1" if cfg.model.bf16 else CONV_CUDA_CORES
+    out.update(profile=profile_train_step(state, graphed, batch, symbol),
+               profile_eager=profile_train_step(state, eager, batch, symbol))
+    del model, state, graphed, eager, captured, batch
+    torch.cuda.empty_cache()
+    return out
 
 
 def overfit_phase(card: str, root: Path) -> dict:
@@ -2059,7 +2257,8 @@ def overfit_phase(card: str, root: Path) -> dict:
     steps over 4 fixed synthetic batches (see the module's docstring, item
     10): the launch counts set to 0 just before and read just after each
     run, the step-600 EPE below ``OVERFIT_EPE_PX`` and every logged loss
-    finite."""
+    finite. Each run's train step is one CUDA graph: 1 eager step, 1
+    captured, 598 replayed."""
     t_phase = time.perf_counter()
     out = {}
     for preset in OVERFIT_PRESETS:
@@ -2070,7 +2269,7 @@ def overfit_phase(card: str, root: Path) -> dict:
         cfg = cli_common.resolve_config(cli_common.base_parser("").parse_args(["--config", preset]), preset)
         steps = cfg.train.num_steps
         ck = root / f"ck_{preset}"
-        run, _ = drive(preset, cli_train, ["--config", preset, "--savemodel", str(ck)], _steps(steps))
+        run, _ = drive(preset, cli_train, ["--config", preset, "--savemodel", str(ck)], **_steps(steps))
         rows = [json.loads(line) for line in Path(ck, "metrics.jsonl").read_text().splitlines()]
         first, last = rows[0], rows[-1]
         if last["step"] != steps or not all(math.isfinite(r["loss"]) for r in rows):
@@ -2089,11 +2288,23 @@ def overfit_phase(card: str, root: Path) -> dict:
             f"grouped): step {first['step']} loss {first['loss']:.4f} EPE "
             f"{first['epe']:.4f} px, step {last['step']} loss {last['loss']:.4f} EPE {last['epe']:.4f} px (gate < "
             f"{OVERFIT_EPE_PX}); {run['wall_s']:.1f} s, {out[preset]['ms_per_step_median']:.2f} ms a step (median "
-            f"of {len(rows)} logged windows), launches a step {per_step} [{card}]; the TPU's result, for "
-            f"context: EPE {tpu[0]} -> {tpu[1]} px (benchmarks/OVERFIT.json)")
+            f"of {len(rows)} logged windows), launches a step {per_step} ({run['replayed']['gband_conv_s1'] // 7} "
+            f"steps replayed) [{card}]; for context, the port's eager step ended at EPE "
+            f"{OVERFIT_EAGER_EPE[preset]} px (PERF.md §6) and the TPU's went {tpu[0]} -> {tpu[1]} px "
+            f"(benchmarks/OVERFIT.json)")
         if not last["epe"] < OVERFIT_EPE_PX:
             raise AssertionError(f"overfit {preset}: step-{steps} EPE {last['epe']} px, not below {OVERFIT_EPE_PX}")
         shutil.rmtree(ck)
+    # one overfit_gate step (f32, remat) timed and profiled, graphed and eager
+    cfg = cli_common.resolve_config(cli_common.base_parser("").parse_args(["--config", "overfit_gate"]),
+                                    "overfit_gate")
+    gate = out["overfit_gate_step"] = time_train_step(cfg, cfg.data.global_batch, cfg.data.crop)
+    log(f"phase overfit: one overfit_gate step ({cfg.data.global_batch} x {cfg.data.crop}, max-disp "
+        f"{cfg.model.max_disp}, f32, remat): graphed {gate['ms_per_step']:.2f} ms, eager "
+        f"{gate['eager_ms_per_step']:.2f} ms (medians of {RUNS}); idle share graphed "
+        f"{gate['profile']['idle_share']:.3f}, eager {gate['profile_eager']['idle_share']:.3f}; capture "
+        f"{gate['capture_ms']:.1f} ms, pool {gate['pool_bytes']} bytes; peak allocated graphed "
+        f"{gate['peak_mem_gb']:.2f} GB, eager {gate['eager_peak_mem_gb']:.2f} GB [{card}]")
     out["wall_s"] = time.perf_counter() - t_phase
     return out
 

@@ -111,10 +111,13 @@ def remat(fn, *args):
     backward recomputes ``fn``'s activations, with the running statistics of
     its BatchNorms frozen, so they are updated once per step. The
     recomputation runs under the mesh of the forward: on a GPU autograd runs
-    it on a thread of its own, which does not see the caller's mesh."""
+    it on a thread of its own, which does not see the caller's mesh. The
+    models draw no random numbers, so no generator state is saved for the
+    recomputation (reading the CUDA generator's state would fail a CUDA
+    graph's capture of the step)."""
     mesh = active_mesh()
     return checkpoint(
-        fn, *args, use_reentrant=False,
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
         context_fn=lambda: (contextlib.nullcontext(), _recomputing(mesh)),
     )
 

@@ -171,6 +171,27 @@ def holding():
         _HOLDERS.pop()
 
 
+# The depth of the ``uncached()`` blocks open, on any thread (a train step's
+# backward runs on autograd's own).
+_UNCACHED = 0
+
+
+@contextlib.contextmanager
+def uncached():
+    """Inside, :func:`cached_pack` neither reads nor fills its cache: each
+    call packs anew. A CUDA graph of a train step (``train/graphs.py``)
+    updates the weights in place at every replay without moving their
+    versions, so a pack its capture took from the cache would be replayed
+    stale; packed inside the graph, it is packed from each replay's
+    weights."""
+    global _UNCACHED
+    _UNCACHED += 1
+    try:
+        yield
+    finally:
+        _UNCACHED -= 1
+
+
 def _stamp(t: torch.Tensor) -> tuple:
     """Address and version of t (an inference tensor, which keeps no
     version, is known by its address and identity alone)."""
@@ -184,7 +205,9 @@ def cached_pack(weight: torch.Tensor, variant: str, make, scale: torch.Tensor | 
     ``data_ptr()`` and ``_version``, and the scale's identity and version. An
     in-place update (an optimizer step, ``load_state_dict``) repacks; a
     served model packs once. The pack is also held for a graph being
-    captured (:func:`hold`)."""
+    captured (:func:`hold`). Inside :func:`uncached`, ``make()`` alone."""
+    if _UNCACHED:
+        return make()
     stamp = (weight.device, _stamp(weight), None if scale is None else _stamp(scale))
     entries = _PACKED.get(weight)
     if entries is None:

@@ -2,10 +2,12 @@
 to its count where it launches its kernel (a CPU tensor launches nothing).
 A caller sets them to 0 just before a path and reads them just after.
 
-A CUDA graph's replay (``train/graphs.py``) runs no Python, so no wrapper
-counts it: each replay adds the launches that its capture counted to a
-count of its own, :func:`read_replayed`, which :func:`reset_counts` also
-sets to 0."""
+A CUDA graph's capture (``train/graphs.py``) launches nothing: what the
+wrappers count during it is the graph's launches per replay, and their
+counts are set back after it. A replay runs no Python, so no wrapper counts
+it: each replay adds the launches that its capture counted to a count of
+its own, :func:`read_replayed`, which :func:`reset_counts` also sets to 0.
+:func:`read_counts` plus :func:`read_replayed` are the launches that ran."""
 
 from __future__ import annotations
 
@@ -40,6 +42,14 @@ def reset_counts() -> None:
 
 def read_counts() -> dict[str, int]:
     return {k: getattr(fn, attr) for k, (fn, attr) in COUNTERS.items()}
+
+
+def set_counts(counts: dict[str, int]) -> None:
+    """Set the wrappers' counts (a CUDA graph's capture sets them back: it
+    launches nothing)."""
+    for k, n in counts.items():
+        fn, attr = COUNTERS[k]
+        setattr(fn, attr, n)
 
 
 def add_replayed(counts: dict[str, int]) -> None:

@@ -7,7 +7,12 @@ count (which drives the learning-rate schedule) and the train step. It is
 written to a temporary name and renamed into place, so a crash during a
 save never leaves a corrupt newest checkpoint; the newest ``keep`` are kept.
 An ``ecm_tpu`` checkpoint does not load here: it crosses only through
-``ecm_torch.weights.from_flax``.
+``ecm_torch.weights.from_flax``. The Adam state is written in one form
+whatever device trained it (``Optimizer.state_dict``: host step counts, a
+float learning rate), so a file moves between the card's captured steps and
+the CPU's eager ones both ways. Restoring into a state whose train step
+has been captured replaces its Adam tensors, so the step is captured again
+(``train/graphs.py``); the model's tensors are copied in place.
 
 In data-parallel training every rank holds the same state: rank 0 writes
 (``train_loop``) and every rank restores. The state is the model's own
@@ -57,7 +62,7 @@ def save(manager: CheckpointManager, step: int, state: TrainState) -> None:
     ``manager.keep``."""
     blob = {
         "model": state.model.state_dict(),
-        "adam": state.optimizer.adam.state_dict(),
+        "adam": state.optimizer.state_dict(),
         "count": state.optimizer.count,
         "step": state.step,
     }
@@ -79,7 +84,7 @@ def restore_latest(manager: CheckpointManager, template: TrainState) -> tuple[Tr
     device = next(template.model.parameters()).device
     blob = torch.load(manager.path(step), map_location=device, weights_only=True)
     template.model.load_state_dict(blob["model"])
-    template.optimizer.adam.load_state_dict(blob["adam"])
+    template.optimizer.load_state_dict(blob["adam"])
     template.optimizer.count = blob["count"]
     template.step = blob["step"]
     return template, step

@@ -1,9 +1,14 @@
 """Train, eval and inference steps (port of ``ecm_tpu/train/steps.py``).
 
-PyTorch runs eagerly, so the train step is a plain function; the eval step
-and the inference function are captured once per input signature into a
-CUDA graph on the card (``train/graphs.py``), the counterpart of their
-``jax.jit``. Each puts the model in
+On the card the train step, the eval step and the inference function are
+each captured once per input signature into a CUDA graph and replayed
+(``train/graphs.py``), the counterpart of their ``jax.jit`` (the train
+step's with the state donated: its graph updates the parameters, the
+BatchNorm statistics and Adam's state in place). The train step's host
+bookkeeping (the schedule's learning rate written to the card, the step
+and schedule counts) runs around the graph, once a call. The train step
+stays eager, each by an explicit branch: on CPU tensors, in anomaly mode
+(``GraphedTrainStep``), and under any mesh (below). Each puts the model in
 the mode it needs (``train()``: batch-statistics BatchNorm, every head;
 ``eval()``: running statistics, the last head). The model's own dtype casts
 (bf16 activations, f32 parameters and statistics) are the mixed precision;
@@ -29,7 +34,10 @@ divide by data x disp); rank 0's parameters and buffers are broadcast once
 gradients over the grid, divided by ``data``. One reduce after the backward
 also keeps the halo exchanges of the backward, which run point to point on
 the disp groups, from interleaving with bucketed all-reduces on the whole
-group (which could deadlock under gloo).
+group (which could deadlock under gloo). A step under a mesh is never
+captured: DDP's reducer, the grid's halo exchanges and ``sum_over_grid``
+run collectives through gloo's host buffers or NCCL's, which the graph
+would have to hold.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
 from ecm_torch.parallel.sharding import Mesh, reduction_mesh, replicate, use_mesh
-from ecm_torch.train.graphs import GraphedForward
+from ecm_torch.train.graphs import GraphedForward, GraphedTrainStep
 from ecm_torch.train.loss import stereo_loss
 from ecm_torch.train.metrics import disparity_metrics
 from ecm_torch.train.state import TrainState
@@ -71,37 +79,51 @@ def sum_over_grid(model: nn.Module, mesh: Mesh) -> None:
         g.copy_(part.view_as(g))
 
 
-def make_train_step(model: nn.Module, max_disp: int, mesh: Mesh | None = None):
+def make_train_step(model: nn.Module, max_disp: int, mesh: Mesh | None = None, graphed: bool = True):
     """``(state, batch) -> (state, metrics)``: one optimizer step on
     ``batch`` (tensors on the model's device: left/right ``[B, H, W, 3]``,
     disparity ``[B, H, W]``; with ``mesh``, this rank's rows of the global
     batch). Metrics stay on the device; with ``mesh`` they are the global
-    batch's on every rank."""
+    batch's on every rank. Without a mesh the step's device work is a
+    ``GraphedTrainStep`` (``.graphed``): one CUDA graph per batch signature
+    on the card. ``graphed=False``: every step eager (what a mesh runs; the
+    reference the graph is held to)."""
     over_disp = mesh is not None and mesh.disp > 1
     if over_disp:
         forward = replicate(model, mesh)
     else:
         forward = model if mesh is None else data_parallel(model, mesh)
 
-    def train_step(state: TrainState, batch: dict[str, torch.Tensor]):
+    def train_step(state: TrainState, left: torch.Tensor, right: torch.Tensor, gt: torch.Tensor):
+        """The step's device work: all a captured graph holds."""
         with use_mesh(mesh):
             model.train()
-            preds = forward(batch["left"], batch["right"])
-            loss = stereo_loss(preds, batch["disparity"], max_disp)
+            preds = forward(left, right)
+            loss = stereo_loss(preds, gt, max_disp)
             state.optimizer.zero_grad()
             loss.backward()
             if over_disp:
                 sum_over_grid(model, mesh)
-            state.optimizer.step()
-            state.step += 1
+            state.optimizer.update()
             loss = loss.detach()
             if (reducing := reduction_mesh()) is not None:
                 loss = reducing.sum(loss) / reducing.data
             metrics = {"loss": loss}
-            metrics.update(disparity_metrics(preds[-1].detach(), batch["disparity"], max_disp))
+            metrics.update(disparity_metrics(preds[-1].detach(), gt, max_disp))
+        return metrics
+
+    # under a mesh: eager, as the module's docstring says
+    run = GraphedTrainStep(train_step, model) if graphed and mesh is None else train_step
+
+    def step(state: TrainState, batch: dict[str, torch.Tensor]):
+        state.optimizer.set_lr()
+        metrics = run(state, batch["left"], batch["right"], batch["disparity"])
+        state.optimizer.count += 1
+        state.step += 1
         return state, metrics
 
-    return train_step
+    step.graphed = run if isinstance(run, GraphedTrainStep) else None
+    return step
 
 
 def make_eval_step(model: nn.Module, max_disp: int):
