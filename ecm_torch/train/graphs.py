@@ -78,6 +78,12 @@ it:
   runs no Python, so no wrapper counts it; each replay adds those launches
   to ``launches.read_replayed()``. ``read_counts()`` plus
   ``read_replayed()`` are the launches that ran.
+- **Spans** (``utils/profiling.span``; nothing while no profiler records):
+  each call is an ``ecm.graph.call``, holding ``ecm.graph.signature`` (the
+  key) and then either ``ecm.graph.eager``, ``ecm.graph.capture`` (warm-up
+  and capture), or a replay's ``ecm.graph.copy_in``, ``ecm.graph.replay``
+  (the graph's launch), ``ecm.graph.bump`` (the versions) and
+  ``ecm.graph.copy_out`` (the clones). None of them synchronises with the card.
 - A failed capture raises, naming the function and its signature. Nothing
   falls back to the eager call. (A train step's warm-up has then been
   applied and its host bookkeeping has not.)
@@ -106,6 +112,7 @@ from torch import nn
 from ecm_torch.ops import launches
 from ecm_torch.ops.cuda_gband import holding, uncached
 from ecm_torch.parallel.sharding import Mesh, active_mesh
+from ecm_torch.utils.profiling import span
 
 MAX_GRAPHS = 2
 MAX_SEEN = 64  # signatures served once and not captured, remembered
@@ -241,22 +248,29 @@ class GraphedForward:
         return contextlib.nullcontext()
 
     def __call__(self, *args):
-        key = self.key(args)
-        if key is None:
-            return self.fn(*args)
-        captured = self.graphs.get(key)
-        if captured is None:
-            return self._miss(key, args)
-        self.graphs.move_to_end(key)
-        for buf, a in zip(captured.inputs, args):
-            if isinstance(buf, torch.Tensor):
-                buf.copy_(a)
-        captured.graph.replay()
-        captured.replays += 1
-        launches.add_replayed(captured.launches)
-        if captured.writes:
-            torch.autograd.graph.increment_version(captured.writes)
-        return _map(torch.clone, captured.outputs)
+        with span("ecm.graph.call"):
+            with span("ecm.graph.signature"):
+                key = self.key(args)
+            if key is None:
+                with span("ecm.graph.eager"):
+                    return self.fn(*args)
+            captured = self.graphs.get(key)
+            if captured is None:
+                return self._miss(key, args)
+            self.graphs.move_to_end(key)
+            with span("ecm.graph.copy_in"):
+                for buf, a in zip(captured.inputs, args):
+                    if isinstance(buf, torch.Tensor):
+                        buf.copy_(a)
+            with span("ecm.graph.replay"):
+                captured.graph.replay()
+                captured.replays += 1
+                launches.add_replayed(captured.launches)
+            if captured.writes:
+                with span("ecm.graph.bump"):
+                    torch.autograd.graph.increment_version(captured.writes)
+            with span("ecm.graph.copy_out"):
+                return _map(torch.clone, captured.outputs)
 
     def _miss(self, key: tuple, args: tuple):
         """A signature with no graph: forget those of other weights, then
@@ -266,11 +280,13 @@ class GraphedForward:
             self.seen.pop(old, None)
         if key in self.seen:
             del self.seen[key]
-            return self._capture(key, args)
+            with span("ecm.graph.capture"):
+                return self._capture(key, args)
         self.seen[key] = None
         while len(self.seen) > MAX_SEEN:
             self.seen.popitem(last=False)
-        return self.fn(*args)
+        with span("ecm.graph.eager"):
+            return self.fn(*args)
 
     def _capture(self, key: tuple, args: tuple):
         """Warm up and capture ``key``; returns the warm-up's outputs."""

@@ -20,13 +20,17 @@ import torch
 
 from ecm_torch.train import checkpoint as ckpt_lib
 from ecm_torch.train.state import TrainState
+from ecm_torch.utils.profiling import span
 
 BATCH_KEYS = ("left", "right", "disparity")
 
 
 def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
-    """The model's inputs of a numpy batch, as f32 tensors on ``device``."""
-    return {k: torch.from_numpy(np.asarray(batch[k], np.float32)).to(device) for k in BATCH_KEYS}
+    """The model's inputs of a numpy batch, as f32 tensors on ``device``
+    (an ``ecm.loop.to_device`` span). To the card each is a copy from
+    pageable memory, which waits for the work queued before it."""
+    with span("ecm.loop.to_device"):
+        return {k: torch.from_numpy(np.asarray(batch[k], np.float32)).to(device) for k in BATCH_KEYS}
 
 
 def _save(manager, step: int, state: TrainState, mesh) -> None:

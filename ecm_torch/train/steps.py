@@ -6,7 +6,8 @@ each captured once per input signature into a CUDA graph and replayed
 step's with the state donated: its graph updates the parameters, the
 BatchNorm statistics and Adam's state in place). The train step's host
 bookkeeping (the schedule's learning rate written to the card, the step
-and schedule counts) runs around the graph, once a call. The train step
+and schedule counts) runs around the graph, once a call, and the whole call
+is an ``ecm.train.step`` span (``utils/profiling.span``). The train step
 stays eager, each by an explicit branch: on CPU tensors, in anomaly mode
 (``GraphedTrainStep``), and under any mesh (below). Each puts the model in
 the mode it needs (``train()``: batch-statistics BatchNorm, every head;
@@ -52,6 +53,7 @@ from ecm_torch.train.graphs import GraphedForward, GraphedTrainStep
 from ecm_torch.train.loss import stereo_loss
 from ecm_torch.train.metrics import disparity_metrics
 from ecm_torch.train.state import TrainState
+from ecm_torch.utils.profiling import span
 
 
 def data_parallel(model: nn.Module, mesh: Mesh) -> DistributedDataParallel:
@@ -116,10 +118,11 @@ def make_train_step(model: nn.Module, max_disp: int, mesh: Mesh | None = None, g
     run = GraphedTrainStep(train_step, model) if graphed and mesh is None else train_step
 
     def step(state: TrainState, batch: dict[str, torch.Tensor]):
-        state.optimizer.set_lr()
-        metrics = run(state, batch["left"], batch["right"], batch["disparity"])
-        state.optimizer.count += 1
-        state.step += 1
+        with span("ecm.train.step"):
+            state.optimizer.set_lr()
+            metrics = run(state, batch["left"], batch["right"], batch["disparity"])
+            state.optimizer.count += 1
+            state.step += 1
         return state, metrics
 
     step.graphed = run if isinstance(run, GraphedTrainStep) else None

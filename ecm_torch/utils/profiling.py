@@ -5,6 +5,11 @@ forward (port of ``ecm_tpu/utils/profiling.py``, under the same names).
 that Perfetto or TensorBoard opens; ``timed`` is the reference's mean wall
 time per call, waiting for the card only where ``fn``'s output lies.
 
+``span`` is the one way the port marks its own host work in such a trace
+(the ``ecm.*`` spans of ``train/graphs.py``, ``train/steps.py`` and
+``train/loop.py``): a ``record_function`` while a profiler records, on the
+clock of the card's kernels and copies, and nothing otherwise.
+
 ``flops_stereo_parts``, ``flops_stereo_forward`` and ``bytes_stereo_parts``
 are the reference's formulas, copied so that they give its values at every
 shape (``tests/test_torch_port_profiling.py`` holds them equal). The FLOP
@@ -29,6 +34,20 @@ import tempfile
 import time
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records ``name`` as a span of the host's work while
+    ``torch.profiler`` records (``trace``, or any ``profile``), inside the
+    enclosing span of the calling thread. With no profiler on it is one
+    shared ``nullcontext``: no ``RecordFunction`` is entered, which a bare
+    ``record_function`` does on every call (about 9 us on a CPU). ``name``
+    is a constant, so that a trace groups by it."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
