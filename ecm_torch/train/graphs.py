@@ -12,16 +12,31 @@ backward, clipping, Adam, the BatchNorm statistics and the metrics) capture
 the function once per signature into a ``torch.cuda.CUDAGraph`` and replay
 it:
 
-- **Signature** of a forward (:func:`signature`): the inputs' shapes,
-  dtypes and device, the model's resolved aggregation layout, the active
-  mesh, the TF32 flags, and the stamp, ``(data_ptr, _version)``, of every
-  parameter and buffer. The packed weights and folded BatchNorms are made in
-  Python caches (``cuda_gband.cached_pack``, ``layers.fold_bn``,
+- **Signature** of a forward: the key read before the launch
+  (:func:`signature`: the inputs' shapes, dtypes and device, the model's
+  resolved aggregation layout, the active mesh, the TF32 flags), and the
+  weights stamp (:func:`weights_stamp`: ``(data_ptr, _version)`` of every
+  parameter and buffer). The packed weights and folded BatchNorms are made
+  in Python caches (``cuda_gband.cached_pack``, ``layers.fold_bn``,
   ``cuda_fused_agg.pair_operands``) that run only at capture, so a graph
-  captured before an in-place update (an optimizer step, BatchNorm's running
-  statistics, ``load_state_dict``) would replay stale packs and folds.
-  When the stamp moves, every graph captured under the old one is dropped
-  before anything can replay it.
+  captured before an in-place update (an optimizer step, BatchNorm's
+  running statistics, ``load_state_dict``) would replay stale packs and
+  folds. The wrapper keeps one stamp, the one its graphs and sightings were
+  taken under, and keys them by the key alone; a new stamp forgets them all.
+- **The stamp after the launch**: the stamp walks every module (~1 ms at
+  KITTI serving's 539 tensors) and the key microseconds. A graph that
+  writes nothing but its pool and outputs (a forward's: ``Captured.writes``
+  empty) is launched on the key alone, and the stamp is read while the card
+  runs it. Under the graph's stamp its outputs are cloned and returned;
+  under another, the replay is thrown away (never returned nor cloned; its
+  stream is synchronised first, so nothing it reads is freed under it), the
+  graphs and sightings are forgotten, and the call goes on as a miss. No
+  user code runs between the call's start and that read, so a call returns
+  a replay's result only under the stamp it was captured with, as when the
+  stamp was read first; a stamp's change costs one wasted replay. A graph
+  that writes state in place (a train step's) is launched only after its
+  whole key is checked. ``late_checks`` and ``discards`` count the replays
+  checked after their launch and those thrown away.
 - **Signature** of a train step (:func:`train_signature`): the batch's
   shapes, dtypes and device, the layout, ``remat``, the TF32 flags,
   ``clip_norm``, and the *addresses* of every parameter, buffer, Adam
@@ -80,10 +95,14 @@ it:
   ``read_replayed()`` are the launches that ran.
 - **Spans** (``utils/profiling.span``; nothing while no profiler records):
   each call is an ``ecm.graph.call``, holding ``ecm.graph.signature`` (the
-  key) and then either ``ecm.graph.eager``, ``ecm.graph.capture`` (warm-up
-  and capture), or a replay's ``ecm.graph.copy_in``, ``ecm.graph.replay``
-  (the graph's launch), ``ecm.graph.bump`` (the versions) and
-  ``ecm.graph.copy_out`` (the clones). None of them synchronises with the card.
+  key read before the launch: a train step's whole key) and then either
+  ``ecm.graph.stamp`` (a forward's weights stamp) and ``ecm.graph.eager``
+  or ``ecm.graph.capture`` (warm-up and capture), or a replay's
+  ``ecm.graph.copy_in``, ``ecm.graph.replay`` (the graph's launch), then
+  ``ecm.graph.stamp`` for a forward or ``ecm.graph.bump`` (the versions)
+  for a train step, and ``ecm.graph.copy_out`` (the clones). None of them
+  synchronises with the card (a discarded replay is waited for between its
+  ``ecm.graph.stamp`` and the eager call).
 - A failed capture raises, naming the function and its signature. Nothing
   falls back to the eager call. (A train step's warm-up has then been
   applied and its host bookkeeping has not.)
@@ -119,14 +138,14 @@ MAX_SEEN = 64  # signatures served once and not captured, remembered
 
 
 def signature(model: nn.Module, args: tuple[torch.Tensor, ...], mesh: Mesh | None) -> tuple:
-    """The key of a captured forward: what the capture read besides the
-    inputs' values (see the module's docstring)."""
+    """The key of a captured forward, read before its launch: what the
+    capture read besides the inputs' values and the weights, whose
+    :func:`weights_stamp` is read after it (see the module's docstring)."""
     return (
         _shapes(args),
         _layout(model, args[0].device),
         None if mesh is None else (mesh.data, mesh.disp),
         _tf32(),
-        weights_stamp(model),
     )
 
 
@@ -222,9 +241,13 @@ class GraphedForward:
         self.model = model
         self.graphs: collections.OrderedDict[tuple, Captured] = collections.OrderedDict()
         self.seen: collections.OrderedDict[tuple, None] = collections.OrderedDict()
+        self.stamp: tuple | None = None  # the one every graph and sighting was taken under
+        self.late_checks = 0  # replays whose stamp was read after their launch
+        self.discards = 0  # of those, the replays thrown away for a moved stamp
 
     def key(self, args: tuple) -> tuple | None:
-        """The signature of a call; None where it runs eagerly."""
+        """The part of a call's signature read before the launch; None where
+        it runs eagerly."""
         if not _on_card(args[0]):
             return None  # the caller chose the CPU: eager, no graph
         mesh = active_mesh()
@@ -234,6 +257,11 @@ class GraphedForward:
 
     def describe(self, key: tuple) -> str:
         return f"inputs {key[0]} (layout {key[1]}, mesh {key[2]})"
+
+    def _stamp(self, key: tuple) -> tuple:
+        """The rest of the signature: what moves when the weights change."""
+        with span("ecm.graph.stamp"):
+            return weights_stamp(self.model)
 
     def _reads(self, args: tuple) -> list[torch.Tensor]:
         """The tensors besides the inputs that a capture reads by address."""
@@ -255,8 +283,14 @@ class GraphedForward:
                 with span("ecm.graph.eager"):
                     return self.fn(*args)
             captured = self.graphs.get(key)
-            if captured is None:
-                return self._miss(key, args)
+            # a graph that writes only its pool and outputs is launched on
+            # the key alone, its stamp read while the card runs it; one that
+            # writes state in place runs only under a checked stamp
+            late = captured is not None and not captured.writes
+            if not late:
+                stamp = self._stamp(key)
+                if captured is None or stamp != self.stamp:
+                    return self._miss(key, stamp, args)
             self.graphs.move_to_end(key)
             with span("ecm.graph.copy_in"):
                 for buf, a in zip(captured.inputs, args):
@@ -269,15 +303,27 @@ class GraphedForward:
             if captured.writes:
                 with span("ecm.graph.bump"):
                     torch.autograd.graph.increment_version(captured.writes)
+            if late:
+                self.late_checks += 1
+                stamp = self._stamp(key)
+                if stamp != self.stamp:
+                    self.discards += 1
+                    if args[0].is_cuda:
+                        # the replay ends before its graph, and what the
+                        # graph holds, are forgotten below
+                        torch.cuda.current_stream(args[0].device).synchronize()
+                    return self._miss(key, stamp, args)
             with span("ecm.graph.copy_out"):
                 return _map(torch.clone, captured.outputs)
 
-    def _miss(self, key: tuple, args: tuple):
-        """A signature with no graph: forget those of other weights, then
-        run eagerly the first time ``key`` is seen and capture the second."""
-        for old in [k for k in (*self.graphs, *self.seen) if k[-1] != key[-1]]:
-            self.graphs.pop(old, None)
-            self.seen.pop(old, None)
+    def _miss(self, key: tuple, stamp: tuple, args: tuple):
+        """A signature with no graph under ``stamp``: forget the graphs and
+        sightings of another stamp, then run eagerly the first time ``key``
+        is seen and capture the second."""
+        if stamp != self.stamp:
+            self.graphs.clear()
+            self.seen.clear()
+            self.stamp = stamp
         if key in self.seen:
             del self.seen[key]
             with span("ecm.graph.capture"):
@@ -358,6 +404,9 @@ class GraphedTrainStep(GraphedForward):
 
     def describe(self, key: tuple) -> str:
         return f"batch {key[0]} (layout {key[1]}, remat {key[2]}, clip_norm {key[4]})"
+
+    def _stamp(self, key: tuple) -> tuple:
+        return key[-1]  # the addresses, read with the key
 
     def _reads(self, args: tuple) -> list[torch.Tensor]:
         return _weights(self.model) + args[0].optimizer.tensors()

@@ -72,6 +72,13 @@ def run(mode: str, tree: str) -> dict:
     steps_ms, served = [], []
     call = GraphedForward.__call__
 
+    def capture_first(self, key, stamp, args):
+        """``GraphedForward._miss`` capturing on a signature's first sighting."""
+        if stamp != self.stamp:
+            self.graphs.clear()
+            self.stamp = stamp
+        return self._capture(key, args)
+
     def timed(self, *args):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -84,7 +91,7 @@ def run(mode: str, tree: str) -> dict:
     with contextlib.ExitStack() as stack:
         stack.enter_context(mock.patch.object(GraphedForward, "__call__", timed))
         if mode == "first_sighting":
-            stack.enter_context(mock.patch.object(GraphedForward, "_miss", lambda self, key, args: self._capture(key, args)))
+            stack.enter_context(mock.patch.object(GraphedForward, "_miss", capture_first))
         printed = stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()

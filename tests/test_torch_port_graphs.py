@@ -30,6 +30,7 @@ from ecm_torch.train import graphs
 from ecm_torch.train.state import create_train_state
 from ecm_torch.train.steps import make_eval_step, make_infer_fn
 from ecm_torch.weights import load_flax
+from test_torch_port_train_graphs import fake_capture
 from test_torch_port_util import flax_variables, t, torch_threads
 
 SMALL = dict(max_disp=16, feature_channels=8)
@@ -139,9 +140,10 @@ def _args(shape=(1, 32, 48, 3), dtype=torch.float32, device="cpu", seed=0):
 
 
 def test_signature_keys_what_a_capture_reads(small_model):
-    """A pure function of the inputs' shapes, dtypes and device, the resolved
-    layout, the mesh and every parameter's and buffer's stamp; new values of
-    the same inputs leave it as it is."""
+    """The key read before the launch: a pure function of the inputs'
+    shapes, dtypes and device, the resolved layout and the mesh; new values
+    of the same inputs leave it as it is, and so does a weight update, which
+    moves the weights stamp read after the launch."""
     m = small_model
     base = graphs.signature(m, _args(), None)
     assert graphs.signature(m, _args(), None) == base
@@ -159,20 +161,30 @@ def test_signature_keys_what_a_capture_reads(small_model):
     finally:
         m.agg_layout = "standard"
     assert graphs.signature(m, _args(), None) == base
+    stamp = graphs.weights_stamp(m)
+    with torch.no_grad():
+        m.aggregation.dres0_1.conv.weight.add_(0.0)
+    assert graphs.signature(m, _args(), None) == base and graphs.weights_stamp(m) != stamp
+
+
+def _full_signature(m, args) -> tuple:
+    """What a forward's graph is keyed by: the key and the weights stamp."""
+    return graphs.signature(m, args, None), graphs.weights_stamp(m)
 
 
 def test_signature_moves_with_every_weight_update(small_model):
     """An in-place ``add_`` on a parameter, a BatchNorm's running-statistics
     update in training mode, and ``load_state_dict`` each give a new
-    signature: the graph of the old one would replay stale packs and folds."""
+    signature, by its weights stamp: the graph of the old one would replay
+    stale packs and folds."""
     m = small_model
     args = _args()
-    sig = graphs.signature(m, args, None)
+    sig = _full_signature(m, args)
     with torch.no_grad():
         m.aggregation.dres0_1.conv.weight.add_(0.0)
-    assert graphs.signature(m, args, None) != sig
+    assert _full_signature(m, args) != sig
 
-    sig = graphs.signature(m, args, None)
+    sig = _full_signature(m, args)
     bn = m.feature.firstconv1.bn
     mean = bn.running_mean.clone()
     bn.train()
@@ -182,12 +194,74 @@ def test_signature_moves_with_every_weight_update(small_model):
     finally:
         bn.eval()
     assert not torch.equal(bn.running_mean, mean)
-    assert graphs.signature(m, args, None) != sig
+    assert _full_signature(m, args) != sig
 
-    sig = graphs.signature(m, args, None)
+    sig = _full_signature(m, args)
     m.load_state_dict(m.state_dict())
-    assert graphs.signature(m, args, None) != sig
-    assert graphs.signature(m, args, None) == graphs.signature(m, args, None)
+    assert _full_signature(m, args) != sig
+    assert _full_signature(m, args) == _full_signature(m, args)
+
+
+def _fake_forward(monkeypatch, seen: list) -> graphs.GraphedForward:
+    """A graphed forward of a small linear model with the CPU taken for the
+    card, captured by the train-graph tests' fake capture; each call of the
+    function and each capture and replay lands in ``seen``."""
+    monkeypatch.setattr(graphs, "_on_card", lambda x: True)
+    model = torch.nn.Linear(3, 2)
+
+    @torch.no_grad()
+    def forward(x):
+        seen.append(("fn",))
+        return model(x) * 2
+
+    g = graphs.GraphedForward(forward, model)
+    monkeypatch.setattr(g, "_capture", fake_capture(g, seen))
+    return g
+
+
+def test_a_replay_reads_its_stamp_after_the_launch(monkeypatch):
+    """The first call runs eagerly, the second warms up and captures, later
+    ones replay and then read the weights stamp: ``late_checks`` counts
+    each replay, nothing is discarded, and each returns new tensors equal to
+    the graph's outputs."""
+    seen = []
+    g = _fake_forward(monkeypatch, seen)
+    x = torch.ones(4, 3)
+    g(x)
+    g(x)
+    assert g.late_checks == 0 and len(g.graphs) == 1
+    (captured,) = g.graphs.values()
+    for _ in range(3):
+        out = g(x)
+        assert out is not captured.outputs and torch.equal(out, captured.outputs)
+    assert g.late_checks == captured.replays == 3 and g.discards == 0
+    assert [s[0] for s in seen] == ["fn", "fn", "capture", "replay", "replay", "replay"]
+
+
+def test_a_moved_stamp_discards_the_replay(monkeypatch):
+    """After an in-place ``add_`` on a weight the next call launches the
+    graph on its key, reads the new stamp after it and throws the replay
+    away: it returns the updated model's eager result, never the graph's
+    outputs, and leaves no graph and one sighting, under the new stamp. The
+    call after that captures again."""
+    seen = []
+    g = _fake_forward(monkeypatch, seen)
+    x = torch.ones(4, 3)
+    for _ in range(3):
+        g(x)
+    (captured,) = g.graphs.values()
+    with torch.no_grad():
+        g.model.weight.add_(1.0)
+    seen.clear()
+    ref = g.fn(x)
+    assert not torch.equal(ref, captured.outputs)
+    out = g(x)
+    assert torch.equal(out, ref) and not torch.equal(out, captured.outputs)
+    assert [s[0] for s in seen] == ["fn", "replay", "fn"]
+    assert captured.replays == 2 and g.late_checks == 2 and g.discards == 1
+    assert not g.graphs and list(g.seen) == [g.key((x,))] and g.stamp == graphs.weights_stamp(g.model)
+    assert torch.equal(g(x), ref) and len(g.graphs) == 1 and seen[-1] == ("capture",)
+    assert torch.equal(g(x), ref) and g.late_checks == 3 and g.discards == 1
 
 
 def test_cpu_builds_no_graph(small_model, monkeypatch):
@@ -217,22 +291,23 @@ def test_cpu_builds_no_graph(small_model, monkeypatch):
 
 def test_capture_waits_for_the_second_sighting(monkeypatch):
     """A signature's first call runs the function eagerly, its second
-    captures; a new weights stamp (the key's last item) forgets the graphs
-    and sightings of the old one; at most ``MAX_SEEN`` sightings are kept."""
+    captures; a new weights stamp forgets the graphs and sightings of the
+    old one and is kept as theirs; at most ``MAX_SEEN`` sightings are
+    kept."""
     calls, captures = [], []
     g = graphs.GraphedForward(lambda *a: calls.append(a) or "eager", torch.nn.Linear(1, 1))
     monkeypatch.setattr(g, "_capture", lambda key, args: captures.append(key) or "captured")
-    a, b, c = ("a", "w0"), ("b", "w0"), ("a", "w1")
-    assert g._miss(a, (1,)) == "eager" and calls == [(1,)] and not captures
-    assert g._miss(b, (2,)) == "eager" and list(g.seen) == [a, b]
-    assert g._miss(a, (3,)) == "captured" and captures == [a] and len(calls) == 2
+    a, b = ("a",), ("b",)
+    assert g._miss(a, "w0", (1,)) == "eager" and calls == [(1,)] and not captures
+    assert g._miss(b, "w0", (2,)) == "eager" and list(g.seen) == [a, b] and g.stamp == "w0"
+    assert g._miss(a, "w0", (3,)) == "captured" and captures == [a] and len(calls) == 2
     assert list(g.seen) == [b]
     g.graphs[a] = "graph of a"
-    assert g._miss(c, (4,)) == "eager"
-    assert not g.graphs and list(g.seen) == [c]
+    assert g._miss(a, "w1", (4,)) == "eager"
+    assert not g.graphs and list(g.seen) == [a] and g.stamp == "w1"
     for i in range(graphs.MAX_SEEN + 3):
-        g._miss((i, "w1"), ())
-    assert len(g.seen) == graphs.MAX_SEEN and (0, "w1") not in g.seen and not captures[1:]
+        g._miss((i,), "w1", ())
+    assert len(g.seen) == graphs.MAX_SEEN and (0,) not in g.seen and not captures[1:]
 
 
 def test_a_capture_holds_what_the_caches_hand_out():

@@ -86,6 +86,7 @@ def test_replay_equals_the_eager_forward(dev, path):
     assert read_counts() == dict.fromkeys(COUNTERS, 0)
     assert read_replayed() == {k: 3 * n for k, n in per.items()}
     assert captured.replays == 3 and len(infer.graphs) == 1
+    assert infer.late_checks == 3 and infer.discards == 0
     assert torch.equal(first, _eager(model, *reqs[0])) and torch.equal(second, first)
     for r, out in zip(reqs, outs):
         assert out.shape == (1, H, W) and torch.equal(out, _eager(model, *r))
@@ -112,9 +113,11 @@ def test_eval_step_replays_the_forward_and_metrics(dev):
 
 def test_weight_update_captures_again(dev):
     """An in-place update of a weight and of BatchNorm statistics, then
-    ``load_state_dict``: each next call drops the old graph and runs
-    eagerly, the one after captures again, and all equal the eager forward
-    of the changed model, and so do the replays."""
+    ``load_state_dict``: each next call replays the old graph, reads the
+    moved stamp after its launch and throws that replay away (``discards``
+    rises by one), drops the graph and runs eagerly; the one after captures
+    again, and all equal the eager forward of the changed model, and so do
+    the replays."""
     model = _model("grouped", dev)
     infer = make_infer_fn(model)
     req = _pair(dev, 7)
@@ -133,18 +136,20 @@ def test_weight_update_captures_again(dev):
         with torch.no_grad():
             model.aggregation.classif3.conv1.bn.running_var.mul_(4.0)
 
-    for update in (scale_weight, scale_statistics, lambda: model.load_state_dict(other.state_dict())):
-        (old,) = infer.graphs
+    for i, update in enumerate((scale_weight, scale_statistics, lambda: model.load_state_dict(other.state_dict()))):
+        (old,) = infer.graphs.values()
+        replays = old.replays
         update()
         eager = _eager(model, *req)
         assert not torch.equal(eager, before)
         assert torch.equal(infer(*req), eager)
-        assert not infer.graphs
+        assert not infer.graphs and old.replays == replays + 1 and infer.discards == i + 1
         assert torch.equal(infer(*req), eager)
-        (new,) = infer.graphs
-        assert new != old
+        (new,) = infer.graphs.values()
+        assert new is not old
         assert torch.equal(infer(*req), eager)
         before = eager
+    assert infer.discards == 3
 
 
 @pytest.mark.parametrize("sync", ["item", "pageable_copy"])

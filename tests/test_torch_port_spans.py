@@ -135,6 +135,32 @@ def test_train_steps_span_each_path_in_order(monkeypatch):
     assert captured.replays == 2 and state.step == 4
 
 
+def test_forwards_span_each_path_in_order(monkeypatch):
+    """Through the fake capture and replay of the train-graph tests: a
+    forward's first call reads its key, then its weights stamp, then runs
+    eagerly; the second reads both, then captures; the third reads its key,
+    copies in, launches, reads the stamp while the card runs the replay,
+    then clones. After a weight update the replay is followed by the stamp
+    and, for the moved stamp, the eager call."""
+    monkeypatch.setattr(graphs, "_on_card", lambda x: True)
+    forward = _eager_forward()
+    monkeypatch.setattr(forward, "_capture", fake_capture(forward, []))
+    x = torch.ones(4, 3)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            forward(x)
+        with torch.no_grad():
+            forward.model.weight.add_(1.0)
+        forward(x)
+    replayed = ["ecm.graph.copy_in", "ecm.graph.replay", "ecm.graph.stamp"]
+    expected = []
+    for rest in (["ecm.graph.stamp", "ecm.graph.eager"], ["ecm.graph.stamp", "ecm.graph.capture"],
+                 replayed + ["ecm.graph.copy_out"], replayed + ["ecm.graph.eager"]):
+        expected += nested(CALL + rest)
+    assert ecm_spans(prof) == expected
+    assert forward.late_checks == 2 and forward.discards == 1
+
+
 def test_to_device_spans_the_copies():
     batch = {k: np.zeros((1, 4, 4, 3)) for k in ("left", "right", "disparity")}
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -151,7 +177,8 @@ def test_the_port_opens_spans_only_through_span():
             assert "record_function" not in path.read_text(), path
     assert emitted() == {
         "ecm.train.step", "ecm.loop.to_device", "ecm.graph.call", "ecm.graph.signature", "ecm.graph.eager",
-        "ecm.graph.capture", "ecm.graph.copy_in", "ecm.graph.replay", "ecm.graph.bump", "ecm.graph.copy_out"}
+        "ecm.graph.capture", "ecm.graph.copy_in", "ecm.graph.replay", "ecm.graph.bump", "ecm.graph.copy_out",
+        "ecm.graph.stamp"}
 
 
 @pytest.mark.parametrize("name", READERS)

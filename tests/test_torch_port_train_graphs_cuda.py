@@ -182,7 +182,8 @@ def test_eval_after_replayed_steps_sees_the_new_weights(dev):
     on a fresh model given the same ``state_dict``, bit for bit, and so does
     an eager forward of the trained model. Without the versions' bump
     after each replay the eval step replays its old graph, whose packs and
-    folds are the old weights', and differs."""
+    folds are the old weights', and differs. The eval graph's replay
+    after them is launched before its stamp is read, and thrown away."""
     state, batch = _state(dev), _batch(dev)
     step = make_train_step(state.model, MAX_DISP)
     evaluate = make_eval_step(state.model, MAX_DISP)
@@ -193,6 +194,7 @@ def test_eval_after_replayed_steps_sees_the_new_weights(dev):
     assert eval_graph.replays == 1
     _run(state, step, batch, 2)
     disp, metrics = evaluate(state, batch)
+    assert eval_graph.replays == 2 and evaluate.graphed.discards == 1 and not evaluate.graphed.graphs
     fresh = _state(dev).model
     fresh.load_state_dict(state.model.state_dict())
     want_disp, want = _eval(fresh, batch)
