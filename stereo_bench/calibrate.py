@@ -5,9 +5,9 @@
 For each of ``--seeds``, one whole run of the cell (a short window) in this
 process: the program's numbers, whose largest is a limit's lower reading.
 For each of ``--control-seeds``, the control put in the program's place on
-that seed's weights and inputs: the reference computed in float8 (e4m3, a
-per-tensor scale; ``reference.ecm.FP8``) against the float32 reference, the
-precision below the configuration's bfloat16; for a serving cell also the
+that seed's weights and inputs: the reference computed in float8 (the
+family's ``FP8``: e4m3, a per-tensor scale) against the float32 reference,
+the precision below the configuration's bfloat16; for a serving cell also the
 fault of a stale answer (another input's reference answer in the place of
 this one's), for a training cell the fault of half the batch left out (the
 reference's steps on the first half of each batch's rows). These set the
@@ -25,23 +25,23 @@ import torch
 
 from stereo_bench import compare, harness, synth
 from stereo_bench import weights as W
-from stereo_bench.reference import ecm as R
+from stereo_bench.families import family
 
 
 def serve_control(spec: dict, seed: int, device: torch.device) -> dict:
     """The float8 reference against the float32 one on as many answers as a
     run compares: the pool's first requests of the seed."""
     cfg, mix = spec["config"], spec["mix"]
-    s = cfg["shapes"]
-    params = W.seeded_weights(cfg, W.build_model(cfg, torch.device("meta")).state_dict(), seed, device)
+    fam, s = family(cfg), cfg["shapes"]
+    params = fam.seeded_weights(cfg, fam.build(cfg, torch.device("meta")).state_dict(), seed, device)
     pool = synth.make_pool(seed + 1, mix["pool"], mix["batch"], s["height"], s["width"], *mix["disparity_range"], device)
     errors, stale, previous = [], [], None
     for x in pool[: mix["checked_requests"]]:
         for lo in range(0, mix["batch"], mix["reference_block"]):
             left = x["left"][lo:lo + mix["reference_block"]].to(device)
             right = x["right"][lo:lo + mix["reference_block"]].to(device)
-            ref = R.infer(params, s["max_disp"], left, right)
-            errors.append((R.infer(params, s["max_disp"], left, right, precision=R.FP8) - ref).abs())
+            ref = fam.infer(params, cfg, left, right, fam.EXACT)
+            errors.append((fam.infer(params, cfg, left, right, fam.FP8) - ref).abs())
             if previous is not None:
                 stale.append((previous - ref).abs())
             previous = ref
@@ -55,16 +55,16 @@ def train_control(spec: dict, seed: int, device: torch.device) -> dict:
     from stereo_bench.drivers import train as T
 
     cfg, mix = spec["config"], spec["mix"]
-    model = W.build_model(cfg, torch.device("meta"))
+    fam = family(cfg)
+    model = fam.build(cfg, torch.device("meta"))
     names = W.trainable(model)
-    params = W.seeded_weights(cfg, model.state_dict(), seed, device)
+    params = fam.seeded_weights(cfg, model.state_dict(), seed, device)
     batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
                for b in T.host_pool(cfg, mix, seed, device)[:T.CHECKED_STEPS]]
-    run = lambda bs, precision=R.EXACT: R.train_steps(params, names, cfg["shapes"]["max_disp"],  # noqa: E731
-                                                      cfg["train"]["lr"], bs, precision)
+    run = lambda bs, precision=fam.EXACT: fam.train_steps(params, names, cfg, bs, precision)  # noqa: E731
     ref = run(batches)
     half = [{k: v[: v.shape[0] // 2] for k, v in b.items()} for b in batches]
-    return {"control": compare.train_numbers(run(batches, R.FP8), ref, params, names)["numbers"],
+    return {"control": compare.train_numbers(run(batches, fam.FP8), ref, params, names)["numbers"],
             "half_batch": compare.train_numbers(run(half), ref, params, names)["numbers"]}
 
 

@@ -11,6 +11,10 @@ replays); the window then runs for ``seconds`` (or, traced, a fixed count
 of requests). A sample of the window's answers, drawn from the seed, is
 kept and, once the window has closed and the program is freed, compared
 with the float32 reference on the same inputs.
+
+The driver names no model: the configuration's family (``families/``)
+builds the program's model, makes its weights, counts a request's work,
+names the program's kernels and runs the reference.
 """
 
 from __future__ import annotations
@@ -22,9 +26,8 @@ import time
 
 import torch
 
-from stereo_bench import compare, counts, harness, synth, trace
-from stereo_bench import weights as W
-from stereo_bench.reference import ecm as R
+from stereo_bench import compare, harness, synth, trace
+from stereo_bench.families import family
 
 
 def percentile(values: list[float], q: float) -> float:
@@ -41,12 +44,12 @@ def run(spec: dict, seed: int, seconds: float, traced: bool, device: torch.devic
     from ecm_torch.train import steps
 
     cfg, mix, name = spec["config"], spec["mix"], spec["workload"]["name"]
-    shapes = cfg["shapes"]
-    h, w, max_disp, c = shapes["height"], shapes["width"], shapes["max_disp"], shapes["feature_channels"]
+    fam = family(cfg)
+    h, w = cfg["shapes"]["height"], cfg["shapes"]["width"]
     batch = mix["batch"]
     t_build = time.perf_counter()
-    model = W.build_model(cfg, device)
-    params = W.seeded_weights(cfg, model.state_dict(), seed, device)
+    model = fam.build(cfg, device)
+    params = fam.seeded_weights(cfg, model.state_dict(), seed, device)
     if device.type == "cuda":  # the peak is the program's, not the weights' calibration by the reference
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
@@ -93,9 +96,8 @@ def run(spec: dict, seed: int, seconds: float, traced: bool, device: torch.devic
     windows = []
     if traced:
         n = mix["trace_requests"]
-        forms = counts.eval_forms(batch, h, w, max_disp, c)
-        work = {"requests": n, "pairs": n * batch, "flops": n * batch * counts.eval_flops(h, w, max_disp, c),
-                "port_bound_s": n * sum(counts.bound_s(f) for f in forms.values())}
+        work = {"requests": n, "pairs": n * batch, "port_kernels": fam.KERNELS,
+                **{k: n * v for k, v in fam.eval_work(cfg, batch).items()}}
         windows.append(trace.profile(lambda: serve(None, n), name, work))
         elapsed = windows[0]["wall_s"]
     else:
@@ -115,7 +117,7 @@ def run(spec: dict, seed: int, seconds: float, traced: bool, device: torch.devic
             failed += 1
         for lo in range(0, batch, mix["reference_block"]):
             hi = lo + mix["reference_block"]
-            ref = R.infer(params, max_disp, x["left"][lo:hi].to(device), x["right"][lo:hi].to(device))
+            ref = fam.infer(params, cfg, x["left"][lo:hi].to(device), x["right"][lo:hi].to(device), fam.EXACT)
             errors.append((out[lo:hi].to(device) - ref).abs())
     numbers = compare.serve_numbers(errors)
     checked = harness.checks(numbers, cfg["limits"])

@@ -11,7 +11,8 @@ what the comparison needs: each step's loss, the first gradient as Adam got
 it, the parameters after the third step. The window then runs the same
 object for ``seconds`` (or, traced, a fixed count of steps), and once it
 has closed and the program is freed, the float32 reference takes the same
-three steps from the same weights and batches.
+three steps from the same weights and batches. As the serving driver, it
+names no model: the configuration's family (``families/``) gives it.
 """
 
 from __future__ import annotations
@@ -22,9 +23,9 @@ import time
 
 import torch
 
-from stereo_bench import compare, counts, harness, synth, trace
+from stereo_bench import compare, harness, synth, trace
 from stereo_bench import weights as W
-from stereo_bench.reference import ecm as R
+from stereo_bench.families import family
 
 CHECKED_STEPS = 3
 
@@ -38,10 +39,9 @@ def host_pool(cfg: dict, mix: dict, seed: int, device: torch.device) -> list[dic
 
 
 def work(cfg: dict, steps: int) -> dict:
-    s = cfg["shapes"]
-    shape = s["batch"], s["height"], s["width"], s["max_disp"], s["feature_channels"]
-    return {"steps": steps, "pairs": steps * s["batch"], "flops": steps * counts.train_flops(*shape),
-            "port_bound_s": steps * sum(counts.bound_s(f) for f in counts.train_forms(*shape).values())}
+    fam = family(cfg)
+    return {"steps": steps, "pairs": steps * cfg["shapes"]["batch"], "port_kernels": fam.KERNELS,
+            **{k: steps * v for k, v in fam.train_work(cfg).items()}}
 
 
 def setup_state(cfg: dict, params: dict, device: torch.device):
@@ -49,16 +49,17 @@ def setup_state(cfg: dict, params: dict, device: torch.device):
     from ecm_torch.train import steps
     from ecm_torch.train.state import create_train_state, make_optimizer
 
-    model = W.build_model(cfg, device)
+    model = family(cfg).build(cfg, device)
     model.load_state_dict(params)
     state = create_train_state(model, make_optimizer(cfg["train"]["lr"]))
     return model, state, steps.make_train_step(model, cfg["shapes"]["max_disp"])
 
 
-def first_steps(model, state, step, batches: list[dict], device: torch.device) -> dict:
+def first_steps(model, state, step, batches: list[dict], running: tuple[str, ...], device: torch.device) -> dict:
     """The first steps through the window's own call and feed; each step's
     loss, the first gradient as Adam got it, the parameters and the
-    BatchNorm running statistics after the last."""
+    running statistics (the buffers named ``*<suffix>`` for a suffix in
+    ``running``) after the last."""
     from ecm_torch.train.loop import to_device
 
     names = dict((id(p), n) for n, p in model.named_parameters())
@@ -72,7 +73,7 @@ def first_steps(model, state, step, batches: list[dict], device: torch.device) -
                      for p, s in state.optimizer.adam.state.items()}
     return {"losses": losses, "first_grads": first,
             "params": {n: p.detach().clone() for n, p in model.named_parameters()},
-            "buffers": {n: b.detach().clone() for n, b in model.named_buffers() if n.endswith(R.RUNNING)}}
+            "buffers": {n: b.detach().clone() for n, b in model.named_buffers() if n.endswith(running)}}
 
 
 def steps_window(state, step, pool: list[dict], mix: dict, device: torch.device, until, count
@@ -102,20 +103,22 @@ def reference_numbers(cfg: dict, params: dict, names: list[str], batches: list[d
     """The reference's first steps on the same weights and batches,
     and the numbers that compare the program's with them."""
     on_device = [{k: torch.from_numpy(v).to(device) for k, v in b.items()} for b in batches]
-    ref = R.train_steps(params, names, cfg["shapes"]["max_disp"], cfg["train"]["lr"], on_device)
+    fam = family(cfg)
+    ref = fam.train_steps(params, names, cfg, on_device, fam.EXACT)
     return compare.train_numbers(prog, ref, params, names)
 
 
 def run(spec: dict, seed: int, seconds: float, traced: bool, device: torch.device, t_start: float) -> dict:
     cfg, mix, name = spec["config"], spec["mix"], spec["workload"]["name"]
+    fam = family(cfg)
     t_build = time.perf_counter()
-    template = W.build_model(cfg, torch.device("meta")).state_dict()
-    params = W.seeded_weights(cfg, template, seed, device)
+    template = fam.build(cfg, torch.device("meta")).state_dict()
+    params = fam.seeded_weights(cfg, template, seed, device)
     model, state, step = setup_state(cfg, params, device)
     names = W.trainable(model)
     pool = host_pool(cfg, mix, seed, device)
     t_warm = time.perf_counter()
-    prog = first_steps(model, state, step, pool[:CHECKED_STEPS], device)
+    prog = first_steps(model, state, step, pool[:CHECKED_STEPS], fam.RUNNING, device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     print(f"{name}: set-up before the model {t_build - t_start:.3f} s, weights and pool {t_warm - t_build:.3f} s, "

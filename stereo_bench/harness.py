@@ -3,10 +3,14 @@ for a card, the result line and its checks.
 
 A cell of ``BENCHMARK.json`` names a configuration (``configs/<name>.json``)
 and a traffic mix (``mixes/<name>.json``); the mix names the driver module
-(``drivers/<name>.py``) that runs it. A per-layer metric is a file
+(``drivers/<name>.py``) that runs it, and the configuration's ``model`` key
+names its family module (``families/<model, lower-cased>.py``), which holds
+all that is particular to one architecture. A per-layer metric is a file
 ``metrics/<name>.py`` with a ``UNIT`` and a ``read(windows)`` that returns a
 number or None (nothing to read). Adding a cell, a mix or a metric is adding
-files; no code here names one.
+files; no code here names one. Adding a configuration of a new model family
+is adding ``families/<model>.py`` and its plain reference
+``reference/<model>.py`` beside the configuration's file.
 """
 
 from __future__ import annotations

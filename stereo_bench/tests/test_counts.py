@@ -13,6 +13,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from stereo_bench import counts, harness, synth
 from stereo_bench import weights as W
+from stereo_bench.families import ecmstereo
 from stereo_bench.reference import ecm as R
 
 KITTI = json.loads((harness.HERE / "configs" / "ecm_kitti.json").read_text())
@@ -22,7 +23,7 @@ def model_and_weights(width: int):
     torch.set_num_threads(2)
     cfg = copy.deepcopy(KITTI)
     cfg["shapes"]["feature_channels"] = width
-    model = W.build_model(cfg, torch.device("cpu"))
+    model = ecmstereo.build(cfg, torch.device("cpu"))
     return model, W.make_weights(model.state_dict(), cfg["weights"], 3, torch.device("cpu"))
 
 

@@ -12,7 +12,8 @@ import sys
 import pytest
 import torch
 
-from stereo_bench import harness, weights
+from stereo_bench import harness
+from stereo_bench.families import family
 
 MAN = harness.manifest()
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}")
@@ -58,15 +59,11 @@ def test_config_file_matches_manifest(conf):
 
 @pytest.mark.parametrize("conf", MAN["configs"], ids=lambda c: c["name"])
 def test_model_takes_the_file_sizes(conf):
-    """The model is built at the file's disparity range, width and dtype, the
-    sizes the counts and the reference take."""
+    """The model is built at the file's sizes, those the counts and the
+    reference take (for ECMStereo: its disparity range, width and dtype)."""
     cfg = json.loads((harness.ROOT / conf["file"]).read_text())
-    model = weights.build_model(cfg, torch.device("meta"))
-    shapes = cfg["shapes"]
-    assert model.max_disp == shapes["max_disp"]
-    c = shapes["feature_channels"]
-    assert model.state_dict()["aggregation.dres0_1.conv.weight"].shape[:2] == (c, 2 * c)
-    assert model.feature.dtype == weights.DTYPES[cfg["dtype"]]  # the compute dtype; parameters stay float32
+    fam = family(cfg)
+    fam.check_sizes(fam.build(cfg, torch.device("meta")), cfg)
 
 
 def test_run_without_a_card_prints_no_result():

@@ -10,8 +10,10 @@ import copy
 from stereo_bench import harness
 
 
-def tiny(name: str, f32: bool = True) -> dict:
-    spec = copy.deepcopy(harness.cell(name, harness.manifest()))
+def tiny(name: str, f32: bool = True, man: dict | None = None) -> dict:
+    """The cell ``name`` of ``man`` (the benchmark's manifest by default)
+    cut to that size."""
+    spec = copy.deepcopy(harness.cell(name, man or harness.manifest()))
     cfg, mix = spec["config"], spec["mix"]
     cfg["shapes"].update(height=64, width=128, max_disp=64)
     if f32:

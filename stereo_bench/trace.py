@@ -10,7 +10,8 @@ The profiler sometimes drops an event, so no reader needs exact counts.
 
 The readers take the list of one window per card used and average over
 them. The program's kernels are told apart by symbol, as its sources name
-them.
+them: a window's ``port_kernels``, which the driver takes from the
+configuration's family.
 """
 
 from __future__ import annotations
@@ -25,13 +26,6 @@ TRACE_DIR = Path(__file__).resolve().parents[1] / "build" / "stereo_bench" / "tr
 WINDOW = "stereo_bench.window"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver", "user_annotation")
-# the program's kernels (csrc/*.cu), by symbol: the conv core's
-# instantiations (every conv3d_bn and gband_conv_s1 form, deconv3d_bn), the
-# CUDA-core routes, the fused pair, the cost volumes and the regression
-PORT_KERNELS = (
-    "conv3d_wgmma_kernel", "conv3d_bn_kernel", "fused_pair_wgmma_kernel", "fused_pair_kernel",
-    "concat_kernel", "correlation_kernel", "upsample_softargmin_kernel",
-)
 TOP = 10
 MIN_GAP_US = 2.0
 SCAN = 2000
@@ -41,7 +35,8 @@ def profile(run_slice, name: str, work: dict) -> dict:
     """Run ``run_slice()`` (which ends in a synchronise) under the profiler
     and return its window: ``wall_s``, ``device`` and ``host`` events
     ``(name, start_us, end_us, cat)``, the window's bounds ``t0``/``t1`` and
-    ``work`` (pairs, steps, flops, the bound of the program's forms)."""
+    ``work`` (pairs, steps, flops, the bound of the program's forms, the
+    symbols of its kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, record_function
 
@@ -81,10 +76,11 @@ def busy_us(win: dict) -> float:
 
 
 def kernel_us(win: dict, port: bool) -> float:
-    """Device time of the window's kernels: ``port`` True the program's,
-    False every other."""
+    """Device time of the window's kernels: ``port`` True the program's
+    (a name that holds one of the window's ``port_kernels``), False every
+    other."""
     return sum(stop - start for name, start, stop, cat in win["device"]
-               if cat == "kernel" and any(s in name for s in PORT_KERNELS) == port)
+               if cat == "kernel" and any(s in name for s in win["port_kernels"]) == port)
 
 
 def _mean(values: list[float | None]) -> float | None:
