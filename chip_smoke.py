@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every item below
+    python3 chip_smoke.py --only raft  # the build, the lookup's check and item 12
 
 1. Builds the port's CUDA kernels (one nvcc per source, in parallel) and
    holds each against its plain PyTorch version at the main paths' shapes
@@ -21,7 +22,10 @@
    also held over a first, an interior and a last rank's range of
    disparities (``d_start``) of the ``disp`` phase's volume, against their
    plain versions and the same planes of the whole volume: concat bit for
-   bit, correlation at 1e-2.
+   bit, correlation at 1e-2. RAFT-Stereo's pyramid lookup
+   (``csrc/corr1d.cu``) is held against its plain version at the
+   ``raft_kitti_b1`` cell's shape (a 96x312 grid, 4 levels, radius 4,
+   float16 out) and timed against the cell's bound (``check_corr1d_lookup``).
 2. Serves ``CONFIGS["kitti_infer"].model.build(...)`` at full width (seeded
    random weights) along four paths, each with every launch count set to 0
    just before it and read just after:
@@ -97,7 +101,9 @@
    disparity computed here with the same weights). The eval CLIs serve
    their pairs of one shape through one CUDA graph: the first pair runs
    eagerly, the second's warm-up counts a pair's launches and its capture
-   none, and every later pair adds them to the replayed count (``_pairs``). Then ``test_img
+   none, and every later pair adds them to the replayed count (``_pairs``);
+   finetune's second validation also replays the first's graph once under
+   the moved weights and throws that replay away. Then ``test_img
    --synthetic`` as a subprocess with no device flag. It reports the train
    CLI's pairs/s, the DataLoader's own rate, the checkpoint's size and its
    save and restore times, and the submission's ms a pair; and packs the 8
@@ -199,8 +205,17 @@
    that ``torch.utils.flop_counter.FlopCounterMode`` counts over one
    forward of the plain path, each with the TFLOP/s it implies at the
    grouped path's batch-8 ms a pair.
-12. Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
-   and last ``{"ok": true, "device": {...}}``.
+12. Serves RAFT-Stereo (``build_model("raft_stereo")``, float16, the
+   ``raft_kitti_b1`` cell's sizes, seeded random weights) through
+   ``make_infer_fn`` on one 384x1248 pair: eager, captured, then one replay
+   with every launch count set to 0 just before it, which must equal the
+   eager forward bit for bit and run 32 lookups (replayed, none counted by
+   the wrapper) and no other kernel of the port; then the graphed and the
+   eager forward's median ms, the capture's ms and pool, and the peak
+   reserved memory (``raft_phase``).
+13. Prints the ``{"kernels": [...]}`` line (each kernel's launches a
+   forward on its main path: the lookup's a RAFT replay), the card's name
+   and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits nonzero without the last line.
 It needs a CUDA device and the rest of the repository beside it.
@@ -208,6 +223,7 @@ It needs a CUDA device and the rest of the repository beside it.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import io
@@ -242,6 +258,8 @@ from ecm_torch.data.preprocess import unpad
 from ecm_torch.data.sceneflow import list_sceneflow
 from ecm_torch.data.sceneflow import load_sample as sceneflow_load_sample
 from ecm_torch.kernels import build
+from ecm_torch.models import build_model
+from ecm_torch.ops import cuda_corr1d as corrk
 from ecm_torch.ops import cuda_cost_volume as cvk
 from ecm_torch.ops import cuda_fused_agg as pairk
 from ecm_torch.ops import cuda_gband as gbk
@@ -291,6 +309,10 @@ MEMCPY_DTOD = "memcpy device to device"
 PLAIN = dict(agg_layout="standard", agg_fused="off", use_pallas=False, regress_mode="fullres")
 PLAIN_BASIC = dict(use_pallas=False, regress_mode="fullres")
 OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+# the raft_kitti_b1 cell's configuration: the lookup's shape and bound, and
+# the RAFT phase's model
+RAFT_CFG = json.loads((Path(__file__).resolve().parent / "stereo_bench" / "configs" / "raft_kitti.json").read_text())
+LOOKUP = "corr1d_lookup_kernel"
 def log(*a) -> None:
     print(*a, flush=True)
 
@@ -720,6 +742,46 @@ def check_gband_conv_s1(gen) -> dict:
     )
     result["cudnn_wgrad_ms"] = wgrad
     return result
+
+
+def check_corr1d_lookup(gen) -> dict:
+    """RAFT-Stereo's pyramid lookup at the ``raft_kitti_b1`` shape (a 96x312
+    grid, 4 levels of the float32 volume of 256-channel features, radius 4,
+    float16 out, as the model calls it) against its plain version, with
+    coordinates inside, on and past both borders and in (-1, 0), at the
+    tolerance of ``tests/test_torch_port_raft_cuda.py``: the plain version's
+    ``grid_sample`` moves x by up to ~4 float32 units in the last place of
+    the row's width, times the row's slope (at most twice its largest
+    value), and float16 rounds once more. Its bound is the cell's
+    (``stereo_bench/families/raftstereo.lookup_form``, bytes). No TPU kernel
+    has this function."""
+    from stereo_bench import counts
+    from stereo_bench.families import raftstereo
+
+    s = RAFT_CFG["shapes"]
+    ds = 2 ** s["n_downsample"]
+    h, w, r = s["height"] // ds, s["width"] // ds, s["corr_radius"]
+    pyramid = corrk.corr_pyramid(_rnd(gen, 1, s["fnet_dim"], h, w), _rnd(gen, 1, s["fnet_dim"], h, w),
+                                 s["corr_levels"])
+    x = torch.arange(w, device="cuda", dtype=torch.float32).expand(1, 1, h, w)
+    flow = (torch.rand(1, 1, h, w, generator=gen, device="cuda") - 0.7) * 1.4 * w
+    xs = torch.cat([x[..., : w // 2] + flow[..., : w // 2], torch.full_like(x[..., w // 2:], -0.5)], -1)
+    xs[..., -8:] = torch.tensor([-1.0, 0.0, w - 1.0, w - 0.5, float(w), -3.7, w + 4.2, -0.25], device="cuda")
+    ys = torch.arange(h, device="cuda", dtype=torch.float32).view(1, 1, h, 1).expand(1, 1, h, w)
+    coords = torch.cat([xs, ys], 1).contiguous()
+    out = corrk.corr1d_lookup(pyramid, coords, r, torch.float16)
+    torch.cuda.synchronize()
+    ref = corrk.corr1d_lookup_torch(pyramid, coords, r)
+    atol = 4 * torch.finfo(torch.float32).eps * w * 2 * pyramid[0].abs().max().item()
+    torch.testing.assert_close(out.float(), ref, rtol=torch.finfo(torch.float16).eps, atol=atol)
+    return dict(
+        name="corr1d_lookup", route="cuda", source="ecm_torch/csrc/corr1d.cu", replaces=None,
+        max_abs_err=(out.float() - ref).abs().max().item(), atol=atol,
+        ms=time_ms(lambda: corrk.corr1d_lookup(pyramid, coords, r, torch.float16)),
+        device_ms=device_ms(lambda: corrk.corr1d_lookup(pyramid, coords, r, torch.float16), LOOKUP),
+        plain_ms=time_ms(lambda: corrk.corr1d_lookup_torch(pyramid, coords, r, torch.float16)),
+        bound_ms=counts.bound_s(raftstereo.lookup_form(RAFT_CFG, 1)) * 1e3, bound_by="bytes", library_ms=None,
+    )
 
 
 def pairs(batch: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1556,13 +1618,21 @@ def cli_phase(card: str, root: Path) -> dict:
 
     # finetune's validation eval every CLI_FINETUNE_EVAL_EVERY steps (the
     # preset's is its checkpoint interval, 1000): at step 2 on the weights of
-    # the step its train graph was captured at, at step 4 after two replays
+    # the step its train graph was captured at, at step 4 after two replays.
+    # Each validation after the first finds the eval graph of the one before
+    # under weights the train steps have moved: the wrapper launches the
+    # replay, reads the weights stamp after the launch, throws the replay
+    # away and serves the pair eagerly, so one discarded replay a validation
+    # is among the launches that ran
     _, val = kitti.list_kitti(kt)
     evals = CLI_FINETUNE_STEPS // CLI_FINETUNE_EVAL_EVERY
+    want = _plus(_steps(CLI_FINETUNE_STEPS), *[_pairs(len(val))] * evals)
+    for k in COUNTERS:
+        want["replayed"][k] += (evals - 1) * CLI_EVAL_PER_PAIR.get(k, 0)
     with preset_train("kitti_finetune", eval_every=CLI_FINETUNE_EVAL_EVERY):
         runs["cli_finetune"], out = drive("finetune", cli_finetune, [
             "--datapath", kt, "--loadmodel", ck, "--steps", str(CLI_FINETUNE_STEPS), "--batch", "4",
-            "--savemodel", ck2], **_plus(_steps(CLI_FINETUNE_STEPS), *[_pairs(len(val))] * evals))
+            "--savemodel", ck2], **want)
     if f"loaded pretrained weights (step {CLI_RESUME_STEPS})" not in out:
         raise AssertionError("finetune did not load the train checkpoint")
     validated = {r["step"]: r["eval"] for r in map(json.loads, Path(ck2, "metrics.jsonl").read_text().splitlines())
@@ -2358,7 +2428,62 @@ def _grad_summary(r: dict) -> str:
                      for n, c in r["grad_cosine"].items())
 
 
-def main() -> int:
+def raft_phase(card: str) -> dict:
+    """RAFT-Stereo served through ``make_infer_fn`` at the ``raft_kitti_b1``
+    size (see the module's docstring, item 12): one 384x1248 pair eager,
+    captured, then replayed with the launch counts set to 0 just before the
+    replay; the replay equal to the eager forward bit for bit, 32 lookups a
+    replay and none counted by the wrapper; then the graphed and the eager
+    forward timed (CUDA events, median of ``RUNS``)."""
+    t_phase = time.perf_counter()
+    s = RAFT_CFG["shapes"]
+    iters = s["valid_iters"]
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model("raft_stereo", device="cuda", generator=torch.Generator().manual_seed(0),
+                        dtype=torch.float16, iters=iters, corr_levels=s["corr_levels"], corr_radius=s["corr_radius"])
+    infer = make_infer_fn(model)
+    left, right = pairs(1, 700)
+    reset_counts()
+    eager = infer(left, right)
+    eager_launches = read_counts()
+    infer(left, right)
+    (captured,) = infer.graphs.values()
+    reset_counts()
+    replay = infer(left, right)
+    torch.cuda.synchronize()
+    launches, counted = read_replayed(), read_counts()
+    if not (captured.launches["corr1d_lookup"] == launches["corr1d_lookup"] == eager_launches["corr1d_lookup"] == iters
+            and not any(counted.values()) and not any(n for k, n in launches.items() if k != "corr1d_lookup")):
+        raise AssertionError(f"raft: eager {eager_launches}, captured {captured.launches}, replay counted "
+                             f"{counted} and replayed {launches}; {iters} lookups a forward expected")
+    if eager.shape != (1, H, W) or not torch.isfinite(eager).all() or not torch.equal(replay, eager):
+        raise AssertionError(f"raft: replay against eager max|diff| {(replay - eager).abs().max().item()}, "
+                             f"shape {tuple(eager.shape)}, finite {torch.isfinite(eager).all().item()}")
+    graphed_runs = times_ms(lambda: infer(left, right))
+    with torch.inference_mode():
+        eager_runs = times_ms(lambda: model(left, right)[-1])
+    out = dict(
+        card=card, iters=iters, launches=launches, eager_launches=eager_launches, replays=captured.replays,
+        ms_per_forward=statistics.median(graphed_runs), eager_ms_per_forward=statistics.median(eager_runs),
+        runs_ms=graphed_runs, eager_runs_ms=eager_runs, capture_ms=captured.capture_ms,
+        pool_bytes=captured.pool_bytes, peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+        disparity_range=[eager.min().item(), eager.max().item()],
+    )
+    del model, infer, captured
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase raft: 384x1248, {iters} iterations, float16: replay equal to eager, {launches['corr1d_lookup']} "
+        f"lookups a replay; graphed {out['ms_per_forward']:.2f} ms, eager {out['eager_ms_per_forward']:.2f} ms a "
+        f"forward (medians of {RUNS}); capture {out['capture_ms']:.1f} ms, pool {out['pool_bytes']} bytes, peak "
+        f"reserved {out['peak_reserved_gb']:.2f} GB; wall {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--only", choices=["raft"],
+                   help="raft: the build, the lookup kernel's check and the RAFT phase alone (items 1 and 12)")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     t0 = time.time()
@@ -2394,19 +2519,54 @@ def main() -> int:
     log(f"phase build: {len(logs)} kernels compiled in {time.time() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [
-        check_cost_volume(gen), check_fused_pair(gen), check_regression(gen, sm_clock_hz),
-        check_conv3d_bn_s1(gen), check_conv3d_bn_down(gen), check_deconv3d_bn(gen),
-        check_correlation(gen), check_gband_conv_s1(gen),
-    ]
-    ranges = check_cost_volume_ranges(gen)
-    for k in kernels:
-        if k["name"] in ("cost_volume_concat", "cost_volume_correlation"):
-            k["d_start_ranges"] = ranges[k["name"].rsplit("_", 1)[1]]
+    if args.only == "raft":
+        kernels = [check_corr1d_lookup(gen)]
+    else:
+        kernels = [
+            check_cost_volume(gen), check_fused_pair(gen), check_regression(gen, sm_clock_hz),
+            check_conv3d_bn_s1(gen), check_conv3d_bn_down(gen), check_deconv3d_bn(gen),
+            check_correlation(gen), check_gband_conv_s1(gen), check_corr1d_lookup(gen),
+        ]
+        ranges = check_cost_volume_ranges(gen)
+        for k in kernels:
+            if k["name"] in ("cost_volume_concat", "cost_volume_correlation"):
+                k["d_start_ranges"] = ranges[k["name"].rsplit("_", 1)[1]]
     for k in kernels:
         log(f"phase kernels: {k['name']}: max|err| {k['max_abs_err']:.3e}, {k['ms']:.4f} ms, "
             f"plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}) [{card}]")
+    if args.only == "raft":
+        paths = {"raft_stereo": raft_phase(card)}
+    else:
+        paths = other_phases(card, gen)
+        paths["raft_stereo"] = raft_phase(card)
+    log("phase raft [" + card + "]: " + json.dumps(paths["raft_stereo"]))
+    # launches: each kernel's count on its main path (the grouped serving
+    # path runs the six slice-1/2 kernels, basic_correlation the correlation
+    # kernel, the train path gband_conv_s1: forwards + input gradients, and
+    # the RAFT path the lookup: a replay's)
+    main_path = {"cost_volume_correlation": "basic_correlation", "gband_conv_s1": "train_sceneflow_single",
+                 "corr1d_lookup": "raft_stereo"}
+    for k in kernels:
+        by_path = {p: r["launches"][k["name"]] for p, r in paths.items() if "launches" in r}
+        if k["name"] == "gband_conv_s1":
+            for p in by_path:
+                by_path[p] += paths[p]["launches"]["gband_conv_s1_input_grad"]
+            k["launches_forward"] = paths["train_sceneflow_single"]["launches"]["gband_conv_s1"]
+            k["launches_input_grad"] = paths["train_sceneflow_single"]["launches"]["gband_conv_s1_input_grad"]
+        k["launches"] = by_path[main_path.get(k["name"], "slice2_grouped")]
+        k["launches_by_path"] = by_path
+    log(f"total {time.time() - t0:.1f} s")
+    log(json.dumps({"kernels": kernels, "card": card}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
 
+
+def other_phases(card: str, gen) -> dict:
+    """Items 2-11 of the module's docstring; returns each path's result by
+    name, with its launch counts where it has them."""
     paths = {
         path: serve(path, name, overrides, per_forward, batch8,
                     COST4_CORR_REL_TOL if fields.get("cost_mode") == "correlation" else COST4_REL_TOL, **fields)
@@ -2447,26 +2607,7 @@ def main() -> int:
     paths["disp_train_evaluate"] = dtrain["cli"]["evaluate"]
     for preset in OVERFIT_PRESETS:
         paths["overfit_" + preset] = overfit[preset]
-    # launches: each kernel's count on its main path (the grouped serving
-    # path runs the six slice-1/2 kernels, basic_correlation the correlation
-    # kernel, the train path gband_conv_s1: forwards + input gradients)
-    main_path = {"cost_volume_correlation": "basic_correlation", "gband_conv_s1": "train_sceneflow_single"}
-    for k in kernels:
-        by_path = {p: r["launches"][k["name"]] for p, r in paths.items() if "launches" in r}
-        if k["name"] == "gband_conv_s1":
-            for p in by_path:
-                by_path[p] += paths[p]["launches"]["gband_conv_s1_input_grad"]
-            k["launches_forward"] = trained["launches"]["gband_conv_s1"]
-            k["launches_input_grad"] = trained["launches"]["gband_conv_s1_input_grad"]
-        k["launches"] = by_path[main_path.get(k["name"], "slice2_grouped")]
-        k["launches_by_path"] = by_path
-    log(f"total {time.time() - t0:.1f} s")
-    log(json.dumps({"kernels": kernels, "card": card}))
-    log(card)
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
-    }}))
-    return 0
+    return paths
 
 
 if __name__ == "__main__":

@@ -1,5 +1,34 @@
-"""Model modules of the port (names mirror the flax scopes of ecm_tpu)."""
+"""Model modules of the port (names mirror the flax scopes of ecm_tpu), and
+``build_model``, which builds one of them by name."""
 
-from ecm_torch.models.ecm import ECMBasic, ECMStereo, build_model, regress_disparity
+from __future__ import annotations
 
-__all__ = ["ECMBasic", "ECMStereo", "build_model", "regress_disparity"]
+import torch
+from torch import nn
+
+from ecm_torch.models.ecm import ECMBasic, ECMStereo, regress_disparity, resolve_device
+from ecm_torch.models.layers import init_weights
+from ecm_torch.models.raft_stereo import RAFTStereo
+
+# build_model's names
+MODELS = {"stackhourglass": ECMStereo, "ecm": ECMStereo, "basic": ECMBasic, "raft_stereo": RAFTStereo}
+
+
+def build_model(
+    name: str = "stackhourglass",
+    device: str | torch.device | None = None,
+    generator: torch.Generator | None = None,
+    **kwargs,
+) -> nn.Module:
+    """Build a model in eval mode on ``device`` (default ``cuda``; raises when
+    there is no GPU and no device was given), initialised from ``generator``
+    (default: seed 0)."""
+    dev = resolve_device(device)
+    if name not in MODELS:
+        raise ValueError(f"unknown model {name!r}; expected {'|'.join(MODELS)}")
+    model = MODELS[name](**kwargs)
+    init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
+    return model.to(dev).eval()
+
+
+__all__ = ["ECMBasic", "ECMStereo", "MODELS", "RAFTStereo", "build_model", "regress_disparity"]

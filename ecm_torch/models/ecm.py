@@ -32,7 +32,7 @@ from torch import nn
 from ecm_torch.models.aggregation import LAYOUTS, ClassifHead, ECMAggregation
 from ecm_torch.models.context import ContextMapping
 from ecm_torch.models.features import FeatureExtraction
-from ecm_torch.models.layers import ConvBN, init_weights, remat
+from ecm_torch.models.layers import ConvBN, remat
 from ecm_torch.parallel.halo import gather_d
 from ecm_torch.parallel.sharding import constrain_volume, disp_mesh
 from ecm_torch.ops.cost_volume import cost_volume
@@ -271,22 +271,3 @@ class ECMBasic(_StereoModel):
             x = remat(block, x) if checkpointed else block(x)
         return [self.classif(x).squeeze(-1)]
 
-
-def build_model(
-    name: str = "stackhourglass",
-    device: str | torch.device | None = None,
-    generator: torch.Generator | None = None,
-    **kwargs,
-) -> nn.Module:
-    """Build a model in eval mode on ``device`` (default ``cuda``; raises when
-    there is no GPU and no device was given), initialised from ``generator``
-    (default: seed 0)."""
-    dev = resolve_device(device)
-    if name in ("stackhourglass", "ecm"):
-        model = ECMStereo(**kwargs)
-    elif name == "basic":
-        model = ECMBasic(**kwargs)
-    else:
-        raise ValueError(f"unknown model {name!r}; expected stackhourglass|ecm|basic")
-    init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
-    return model.to(dev).eval()

@@ -11,6 +11,7 @@ its own, :func:`read_replayed`, which :func:`reset_counts` also sets to 0.
 
 from __future__ import annotations
 
+from ecm_torch.ops import cuda_corr1d as corrk
 from ecm_torch.ops import cuda_cost_volume as cvk
 from ecm_torch.ops import cuda_fused_agg as pairk
 from ecm_torch.ops import cuda_gband as gbk
@@ -28,6 +29,7 @@ COUNTERS = {
     "fused_upsample_softargmin": (regk.fused_upsample_softargmin, "launches"),
     "gband_conv_s1": (gbk.gband_conv_s1, "launches"),
     "gband_conv_s1_input_grad": (gbk.gband_conv_s1, "backward_launches"),
+    "corr1d_lookup": (corrk.corr1d_lookup, "launches"),
 }
 
 

@@ -178,7 +178,7 @@ def test_the_port_opens_spans_only_through_span():
     assert emitted() == {
         "ecm.train.step", "ecm.loop.to_device", "ecm.graph.call", "ecm.graph.signature", "ecm.graph.eager",
         "ecm.graph.capture", "ecm.graph.copy_in", "ecm.graph.replay", "ecm.graph.bump", "ecm.graph.copy_out",
-        "ecm.graph.stamp"}
+        "ecm.graph.stamp", "ecm.raft.encode", "ecm.raft.volume", "ecm.raft.update", "ecm.raft.upsample"}
 
 
 @pytest.mark.parametrize("name", READERS)
