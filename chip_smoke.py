@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one GPU and check it.
 
     python3 chip_smoke.py              # every item below
-    python3 chip_smoke.py --only raft  # the build, the lookup's check and item 12
+    python3 chip_smoke.py --only raft  # the build, RAFT's two kernel checks and item 12
 
 1. Builds the port's CUDA kernels (one nvcc per source, in parallel) and
    holds each against its plain PyTorch version at the main paths' shapes
@@ -26,6 +26,12 @@
    (``csrc/corr1d.cu``) is held against its plain version at the
    ``raft_kitti_b1`` cell's shape (a 96x312 grid, 4 levels, radius 4,
    float16 out) and timed against the cell's bound (``check_corr1d_lookup``).
+   Its channels-last instance norm (``ops/instance_norm.py``, three Triton
+   kernels) is held against its plain version at ``fnet``'s three float16
+   shapes (two images: 64 channels at 384x1248, 96 at 192x624, 128 at
+   96x312, five norms each) and timed, a pair's 15 norms, against their
+   bytes bound and against the library's NCHW ``F.instance_norm``
+   (``check_instance_norm``).
 2. Serves ``CONFIGS["kitti_infer"].model.build(...)`` at full width (seeded
    random weights) along four paths, each with every launch count set to 0
    just before it and read just after:
@@ -209,12 +215,14 @@
    ``raft_kitti_b1`` cell's sizes, seeded random weights) through
    ``make_infer_fn`` on one 384x1248 pair: eager, captured, then one replay
    with every launch count set to 0 just before it, which must equal the
-   eager forward bit for bit and run 32 lookups (replayed, none counted by
-   the wrapper) and no other kernel of the port; then the graphed and the
+   eager forward bit for bit and run 32 lookups and 15 instance norms
+   (replayed, none counted by the wrappers) and no other kernel of the port;
+   then the graphed and the
    eager forward's median ms, the capture's ms and pool, and the peak
    reserved memory (``raft_phase``).
 13. Prints the ``{"kernels": [...]}`` line (each kernel's launches a
-   forward on its main path: the lookup's a RAFT replay), the card's name
+   forward on its main path: the lookup's and the instance norm's a RAFT
+   replay), the card's name
    and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits nonzero without the last line.
@@ -265,6 +273,7 @@ from ecm_torch.ops import cuda_fused_agg as pairk
 from ecm_torch.ops import cuda_gband as gbk
 from ecm_torch.ops import cuda_gdeconv as gdk
 from ecm_torch.ops import cuda_regression as regk
+from ecm_torch.ops import instance_norm as ink
 from ecm_torch.ops.launches import COUNTERS, read_counts, read_replayed, reset_counts
 from ecm_torch.parallel import dryrun
 from ecm_torch.train import checkpoint as ckpt_lib
@@ -313,6 +322,10 @@ OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 # the RAFT phase's model
 RAFT_CFG = json.loads((Path(__file__).resolve().parent / "stereo_bench" / "configs" / "raft_kitti.json").read_text())
 LOOKUP = "corr1d_lookup_kernel"
+# fnet's instance norms on a pair (two images) at the cell's size: shape and
+# norms a forward (the stem's and layer1's at full size, layer2's and
+# layer3's at 1/2 and 1/4, three in each layer's first block)
+FNET_NORMS = (((2, 64, H, W), 5), ((2, 96, H // 2, W // 2), 5), ((2, 128, H // 4, W // 4), 5))
 def log(*a) -> None:
     print(*a, flush=True)
 
@@ -782,6 +795,51 @@ def check_corr1d_lookup(gen) -> dict:
         plain_ms=time_ms(lambda: corrk.corr1d_lookup_torch(pyramid, coords, r, torch.float16)),
         bound_ms=counts.bound_s(raftstereo.lookup_form(RAFT_CFG, 1)) * 1e3, bound_by="bytes", library_ms=None,
     )
+
+
+def check_instance_norm(gen) -> dict:
+    """RAFT-Stereo's channels-last instance norm (``ops/instance_norm.py``'s
+    Triton kernels) at ``fnet``'s float16 shapes (``FNET_NORMS``) against
+    its plain version on the same values, at the tolerance of
+    ``tests/test_torch_port_raft_cuda.py``: a few float32 roundings of the
+    largest output (another order of the sums) and one float16 rounding.
+    The times are a pair's (each shape's norms a forward): the kernels,
+    the plain version, and the library's ``F.instance_norm`` on the NCHW
+    tensor, which the channels-last model cannot call without a layout
+    copy each way; the bound reads each input once and writes each output
+    once. No TPU kernel has this function."""
+    if (H, W) != (RAFT_CFG["shapes"]["height"], RAFT_CFG["shapes"]["width"]):
+        raise AssertionError(f"FNET_NORMS: {H}x{W} is not the raft_kitti_b1 cell's size")
+    rows, err, atol = [], 0.0, 0.0
+    for shape, n in FNET_NORMS:
+        b, c = shape[:2]
+        x = _rnd(gen, *shape, scale=3.0) + _rnd(gen, b, c, 1, 1, scale=4.0)
+        x = x.to(torch.float16, memory_format=torch.channels_last)
+        ink.instance_norm.launches = 0
+        out = ink.instance_norm(x)
+        torch.cuda.synchronize()
+        ref = ink.instance_norm_torch(x)
+        if ink.instance_norm.launches != 1 or not out.is_contiguous(memory_format=torch.channels_last):
+            raise AssertionError(f"instance_norm {shape}: {ink.instance_norm.launches} launches, strides "
+                                 f"{out.stride()}")
+        tol = 8 * torch.finfo(torch.float32).eps * ref.abs().max().item()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=torch.finfo(torch.float16).eps, atol=tol)
+        err, atol = max(err, (out.float() - ref.float()).abs().max().item()), max(atol, tol)
+        nchw = x.contiguous()
+        rows.append(dict(
+            shape=list(shape), norms=n, ms=time_ms(lambda: ink.instance_norm(x)),
+            device_ms=device_total_ms(lambda: ink.instance_norm(x)),
+            plain_ms=time_ms(lambda: ink.instance_norm_torch(x)),
+            library_ms=time_ms(lambda: F.instance_norm(nchw)),
+            bound_ms=bound(0, PEAK_BF16_FLOPS, nbytes(x, out))[0],
+        ))
+        log(f"  instance_norm {shape}: max|err| {(out.float() - ref.float()).abs().max().item():.3e}, "
+            f"{rows[-1]['ms']:.4f} ms (device {rows[-1]['device_ms']:.4f}), plain {rows[-1]['plain_ms']:.4f}, "
+            f"library NCHW {rows[-1]['library_ms']:.4f}; bound {rows[-1]['bound_ms']:.4f} ms a norm")
+    total = {k: sum(r["norms"] * r[k] for r in rows) for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
+    return dict(name="instance_norm", route="triton", source="ecm_torch/ops/_instance_norm_triton.py",
+                replaces=None, max_abs_err=err, atol=atol, bound_by="bytes", kernels_a_launch=3,
+                forms=rows, **total)
 
 
 def pairs(batch: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -2433,7 +2491,8 @@ def raft_phase(card: str) -> dict:
     size (see the module's docstring, item 12): one 384x1248 pair eager,
     captured, then replayed with the launch counts set to 0 just before the
     replay; the replay equal to the eager forward bit for bit, 32 lookups a
-    replay and none counted by the wrapper; then the graphed and the eager
+    replay and none counted by the wrapper, and as many instance norms as
+    ``fnet`` has (``FNET_NORMS``: 15); then the graphed and the eager
     forward timed (CUDA events, median of ``RUNS``)."""
     t_phase = time.perf_counter()
     s = RAFT_CFG["shapes"]
@@ -2452,10 +2511,10 @@ def raft_phase(card: str) -> dict:
     replay = infer(left, right)
     torch.cuda.synchronize()
     launches, counted = read_replayed(), read_counts()
-    if not (captured.launches["corr1d_lookup"] == launches["corr1d_lookup"] == eager_launches["corr1d_lookup"] == iters
-            and not any(counted.values()) and not any(n for k, n in launches.items() if k != "corr1d_lookup")):
+    want = {k: 0 for k in COUNTERS} | {"corr1d_lookup": iters, "instance_norm": sum(n for _, n in FNET_NORMS)}
+    if not (captured.launches == launches == eager_launches == want and not any(counted.values())):
         raise AssertionError(f"raft: eager {eager_launches}, captured {captured.launches}, replay counted "
-                             f"{counted} and replayed {launches}; {iters} lookups a forward expected")
+                             f"{counted} and replayed {launches}; {want} a forward expected")
     if eager.shape != (1, H, W) or not torch.isfinite(eager).all() or not torch.equal(replay, eager):
         raise AssertionError(f"raft: replay against eager max|diff| {(replay - eager).abs().max().item()}, "
                              f"shape {tuple(eager.shape)}, finite {torch.isfinite(eager).all().item()}")
@@ -2473,7 +2532,7 @@ def raft_phase(card: str) -> dict:
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase raft: 384x1248, {iters} iterations, float16: replay equal to eager, {launches['corr1d_lookup']} "
-        f"lookups a replay; graphed {out['ms_per_forward']:.2f} ms, eager {out['eager_ms_per_forward']:.2f} ms a "
+        f"lookups and {launches['instance_norm']} instance norms a replay; graphed {out['ms_per_forward']:.2f} ms, eager {out['eager_ms_per_forward']:.2f} ms a "
         f"forward (medians of {RUNS}); capture {out['capture_ms']:.1f} ms, pool {out['pool_bytes']} bytes, peak "
         f"reserved {out['peak_reserved_gb']:.2f} GB; wall {out['wall_s']:.1f} s [{card}]")
     return out
@@ -2482,7 +2541,7 @@ def raft_phase(card: str) -> dict:
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--only", choices=["raft"],
-                   help="raft: the build, the lookup kernel's check and the RAFT phase alone (items 1 and 12)")
+                   help="raft: the build, RAFT's two kernel checks and the RAFT phase alone (items 1 and 12)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2520,12 +2579,12 @@ def main(argv: list[str] | None = None) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.only == "raft":
-        kernels = [check_corr1d_lookup(gen)]
+        kernels = [check_corr1d_lookup(gen), check_instance_norm(gen)]
     else:
         kernels = [
             check_cost_volume(gen), check_fused_pair(gen), check_regression(gen, sm_clock_hz),
             check_conv3d_bn_s1(gen), check_conv3d_bn_down(gen), check_deconv3d_bn(gen),
-            check_correlation(gen), check_gband_conv_s1(gen), check_corr1d_lookup(gen),
+            check_correlation(gen), check_gband_conv_s1(gen), check_corr1d_lookup(gen), check_instance_norm(gen),
         ]
         ranges = check_cost_volume_ranges(gen)
         for k in kernels:
@@ -2543,9 +2602,9 @@ def main(argv: list[str] | None = None) -> int:
     # launches: each kernel's count on its main path (the grouped serving
     # path runs the six slice-1/2 kernels, basic_correlation the correlation
     # kernel, the train path gband_conv_s1: forwards + input gradients, and
-    # the RAFT path the lookup: a replay's)
+    # the RAFT path the lookup and the instance norm: a replay's)
     main_path = {"cost_volume_correlation": "basic_correlation", "gband_conv_s1": "train_sceneflow_single",
-                 "corr1d_lookup": "raft_stereo"}
+                 "corr1d_lookup": "raft_stereo", "instance_norm": "raft_stereo"}
     for k in kernels:
         by_path = {p: r["launches"][k["name"]] for p, r in paths.items() if "launches" in r}
         if k["name"] == "gband_conv_s1":

@@ -13,6 +13,16 @@ the published evaluation's: ``n_downsample 2``, three GRU levels of 128,
 ``corr_levels 4``, ``corr_radius 4``, ``valid_iters 32``, no shared backbone
 and no slow-fast GRU.
 
+Layout. Activations are channels-last inside, as the port's other models
+keep them (``ecm_torch/__init__.py``): every tensor that reaches a
+convolution is the channels-first view of an NHWC tensor, and every
+convolution's weight is packed channels-last once per weights version, so
+cuDNN reads and writes NHWC directly and transposes nothing. Instance norm
+is ``ops/instance_norm.py``, since ``F.instance_norm`` returns NCHW. The
+lookup writes NCHW and its coordinates are NCHW ``[B, 2, H, W]`` float32:
+its output is made channels-last once an iteration, the flow update
+``delta`` channels-first once an iteration, the mask once a forward.
+
 Precision. ``dtype`` float16 is the published ``--mixed_precision``,
 written as explicit casts where autocast casts: every convolution runs in
 ``dtype`` (its weights cast once per weights version by
@@ -51,10 +61,12 @@ from torch import nn
 
 from ecm_torch.ops.cuda_corr1d import corr1d_lookup, corr_pyramid
 from ecm_torch.ops.cuda_gband import cached_pack
+from ecm_torch.ops.instance_norm import instance_norm
 from ecm_torch.utils.profiling import span
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+CL = torch.channels_last
 
 
 def _cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
@@ -63,15 +75,27 @@ def _cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
     return cached_pack(p, f"cast.{dtype}", lambda: p.to(dtype))
 
 
+def conv_weight(m: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """``m``'s weight in ``dtype`` and channels-last, packed once per version."""
+    w = m.weight
+    return cached_pack(w, f"channels_last.{dtype}", lambda: w.to(dtype, memory_format=CL))
+
+
 def conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``m`` on ``x`` in ``x``'s dtype."""
-    return F.conv2d(x, _cast(m.weight, x.dtype), _cast(m.bias, x.dtype), m.stride, m.padding)
+    """``m`` on the channels-last ``x`` in ``x``'s dtype."""
+    return F.conv2d(x, conv_weight(m, x.dtype), _cast(m.bias, x.dtype), m.stride, m.padding)
+
+
+class InstanceNorm(nn.Module):
+    """The published ``nn.InstanceNorm2d(c)``, which has no parameters and no
+    state, in the channels-last layout (``ops/instance_norm.py``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return instance_norm(x)
 
 
 def _norm(kind: str, channels: int) -> nn.Module:
-    if kind == "batch":
-        return nn.BatchNorm2d(channels)
-    return nn.InstanceNorm2d(channels)  # no affine, no running statistics
+    return nn.BatchNorm2d(channels) if kind == "batch" else InstanceNorm()
 
 
 class ResidualBlock(nn.Module):
@@ -228,7 +252,7 @@ def upsample_flow(flow: torch.Tensor, mask: torch.Tensor, factor: int) -> torch.
     """Convex upsampling: each fine pixel a softmax-weighted sum of its coarse
     3x3 neighbourhood of ``factor * flow``."""
     n, d, h, w = flow.shape
-    mask = mask.view(n, 1, 9, factor, factor, h, w).softmax(2)
+    mask = mask.reshape(n, 1, 9, factor, factor, h, w).softmax(2)
     up = F.unfold(factor * flow, [3, 3], padding=1).view(n, d, 9, 1, 1, h, w)
     up = (mask * up).sum(2).permute(0, 1, 4, 2, 5, 3)
     return up.reshape(n, d, factor * h, factor * w)
@@ -255,10 +279,11 @@ class RAFTStereo(nn.Module):
         self.fnet = BasicEncoder(256, n_downsample)
 
     def _image(self, x: torch.Tensor) -> torch.Tensor:
-        """ImageNet-normalised channels-last -> ``2 p / 255 - 1`` channels-first."""
+        """ImageNet-normalised ``[B, H, W, 3]`` -> ``2 p / 255 - 1``, the
+        channels-first view of a channels-last tensor."""
         x = x.float()
         channels = [2 * (x[..., c] * s + m) - 1 for c, (m, s) in enumerate(zip(IMAGENET_MEAN, IMAGENET_STD))]
-        return torch.stack(channels, 1)
+        return torch.stack(channels, -1).permute(0, 3, 1, 2)
 
     def forward(self, left: torch.Tensor, right: torch.Tensor) -> list[torch.Tensor]:
         dt = self.dtype
@@ -267,7 +292,9 @@ class RAFTStereo(nn.Module):
             levels = self.cnet(img1)
             fmap1, fmap2 = self.fnet(torch.cat([img1, img2])).float().split(img1.shape[0])
             net = [torch.tanh(h) for h, _ in levels]
-            inp = [conv(c, F.relu(x)).split(c.out_channels // 3, 1) for c, (_, x) in zip(self.context_zqr_convs, levels)]
+            # each third dense once, not a strided view in 32 iterations' gate sums
+            inp = [tuple(t.contiguous(memory_format=CL) for t in conv(c, F.relu(x)).split(c.out_channels // 3, 1))
+                   for c, (_, x) in zip(self.context_zqr_convs, levels)]
         with span("ecm.raft.volume"):
             pyramid = corr_pyramid(fmap1, fmap2, self.corr_levels)
         b, _, h, w = fmap1.shape
@@ -277,11 +304,11 @@ class RAFTStereo(nn.Module):
         coords1 = coords0.clone()
         for _ in range(self.iters):
             with span("ecm.raft.update"):
-                corr = corr1d_lookup(pyramid, coords1, self.corr_radius, dt)
-                flow = coords1 - coords0
-                net, mask, delta = self.update_block(net, inp, corr, flow.to(dt))
+                corr = corr1d_lookup(pyramid, coords1, self.corr_radius, dt).contiguous(memory_format=CL)
+                flow = (coords1 - coords0).to(dt, memory_format=CL)
+                net, mask, delta = self.update_block(net, inp, corr, flow)
                 delta[:, 1] = 0
-                coords1 = coords1 + delta
+                coords1 = coords1 + delta.contiguous()
         with span("ecm.raft.upsample"):
             flow_up = upsample_flow((coords1 - coords0)[:, :1], mask, 2**self.n_downsample)
         return [-flow_up[:, 0]]

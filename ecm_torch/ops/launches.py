@@ -17,6 +17,7 @@ from ecm_torch.ops import cuda_fused_agg as pairk
 from ecm_torch.ops import cuda_gband as gbk
 from ecm_torch.ops import cuda_gdeconv as gdk
 from ecm_torch.ops import cuda_regression as regk
+from ecm_torch.ops import instance_norm as ink
 
 # name -> (wrapper, attribute)
 COUNTERS = {
@@ -30,6 +31,7 @@ COUNTERS = {
     "gband_conv_s1": (gbk.gband_conv_s1, "launches"),
     "gband_conv_s1_input_grad": (gbk.gband_conv_s1, "backward_launches"),
     "corr1d_lookup": (corrk.corr1d_lookup, "launches"),
+    "instance_norm": (ink.instance_norm, "launches"),
 }
 
 

@@ -4,8 +4,10 @@ small size (2x64x128, 3 iterations, float32) on the benchmark's seeded
 weights: the forward against the plain reference
 ``stereo_bench/reference/raftstereo.py``, the plain lookup against the
 equation, a forward on ``meta`` tensors (nothing read on the host), the
-published state-dict names, the spans, the configuration's build and the
-``test_img`` CLI."""
+channels-last layout of every convolution's input and weight, the
+channels-last instance norm against ``F.instance_norm``, the published
+state-dict names, the spans, the configuration's build and the ``test_img``
+CLI."""
 
 from __future__ import annotations
 
@@ -18,18 +20,22 @@ import json
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from PIL import Image
+from torch import nn
 from torch.profiler import ProfilerActivity, profile
 
 from ecm_torch.cli import test_img
 from ecm_torch.configs import CONFIGS
-from ecm_torch.models import RAFTStereo, build_model
+from ecm_torch.models import RAFTStereo, build_model, raft_stereo
 from ecm_torch.ops import launches
 from ecm_torch.ops.cuda_corr1d import corr1d_lookup, corr1d_lookup_torch, corr_pyramid
+from ecm_torch.ops.instance_norm import instance_norm
 from stereo_bench import harness, synth
 from stereo_bench.families import raftstereo as fam
 
 CPU = torch.device("cpu")
+CL = torch.channels_last
 H, W, ITERS = 64, 128, 3
 
 
@@ -72,6 +78,53 @@ def test_forward_matches_the_reference(model_and_params, seed):
     assert len(out) == 1 and out[-1].shape == (2, H, W) and out[-1].dtype == torch.float32
     assert ref.abs().mean() > 0.1  # the iterations moved the flow
     torch.testing.assert_close(out[-1], ref, rtol=0, atol=5e-5)
+
+
+def test_every_convolution_reads_channels_last(model_and_params, monkeypatch):
+    """Every convolution of a forward (both encoders, the context convs, each
+    iteration's) gets a channels-last input and weight, so cuDNN's NHWC
+    convolutions transpose nothing. ``is_contiguous(memory_format=...)``
+    ignores size-1 dimensions, so 1x1 weights and 1-pixel maps pass as
+    they are."""
+    _, model, _ = model_and_params
+    seen, real = [], raft_stereo.conv
+
+    def spy(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        w = raft_stereo.conv_weight(m, x.dtype)
+        seen.append((m, x.is_contiguous(memory_format=CL), w.is_contiguous(memory_format=CL)))
+        return real(m, x)
+
+    monkeypatch.setattr(raft_stereo, "conv", spy)
+    pair = synth.make_pairs(torch.Generator().manual_seed(5), 1, H, W, 1.0, 12.0, CPU)
+    with torch.inference_mode():
+        model(pair["left"], pair["right"])
+    names = {m: n for n, m in model.named_modules() if isinstance(m, nn.Conv2d)}
+    assert {m for m, _, _ in seen} == set(names)  # every convolution ran through conv()
+    assert sum(m is model.update_block.gru08.convq for m, _, _ in seen) == ITERS
+    bad = [(names[m], x_cl, w_cl) for m, x_cl, w_cl in seen if not (x_cl and w_cl)]
+    assert not bad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_instance_norm_keeps_channels_last(dtype):
+    """Against ``F.instance_norm``: in float32 to float32 rounding; in
+    float16 within one float16 rounding of ``F.instance_norm`` in float32,
+    cast (both compute float32 statistics of the same float16 values and
+    round once). The result stays channels-last, where the library's
+    returns NCHW."""
+    g = torch.Generator().manual_seed(5)
+    x = 3 * torch.randn(2, 24, 9, 13, generator=g) + 4 * torch.randn(2, 24, 1, 1, generator=g)
+    x = x.to(dtype, memory_format=CL)
+    got = instance_norm(x)
+    assert got.dtype == dtype and got.is_contiguous(memory_format=CL) and not got.is_contiguous()
+    ref = F.instance_norm(x.float())
+    if dtype == torch.float32:
+        eps = torch.finfo(torch.float32).eps
+        torch.testing.assert_close(got, ref, rtol=4 * eps, atol=4 * eps * ref.abs().max().item())
+    else:
+        ref = ref.to(dtype).float()
+        ulp = torch.finfo(dtype).eps * torch.maximum(ref.abs(), torch.tensor(2.0**-14))
+        assert ((got.float() - ref).abs() <= ulp).all()
 
 
 def the_equation(pyramid: list[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:

@@ -2,7 +2,9 @@
 through CUDA graphs on the card: the kernel against its plain version at
 the served size (384x1248: a 96x312 grid, 4 levels, radius 4), and the
 graphed forward against the eager one at 64x128 with the published 32
-iterations, in float16.
+iterations, in float16, an eager forward's kernels (no layout transpose: the
+model is channels-last, as cuDNN's float16 convolutions run), and the
+channels-last instance norm's Triton kernels against ``F.instance_norm``.
 
 Marked ``cuda``: skipped without a GPU. The machine with the card has no
 JAX, so run these there without the JAX test setup:
@@ -11,9 +13,12 @@ JAX, so run these there without the JAX test setup:
 
 import pytest
 import torch
+import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 from ecm_torch.models import build_model
 from ecm_torch.ops.cuda_corr1d import corr1d_lookup, corr1d_lookup_torch, corr_pyramid
+from ecm_torch.ops.instance_norm import instance_norm
 from ecm_torch.ops.launches import read_counts, read_replayed, reset_counts
 from ecm_torch.train.steps import make_infer_fn
 
@@ -104,3 +109,49 @@ def test_replay_equals_eager_and_runs_32_lookups(dev):
     for out, ref in zip(outs, eager):
         assert out.shape == (1, 64, 128) and out.dtype == torch.float32 and torch.equal(out, ref)
     assert not torch.equal(outs[0], outs[1])
+
+
+def test_eager_forward_runs_no_layout_transpose(dev):
+    """cuDNN runs float16 convolutions NHWC and transposes an NCHW input,
+    weight or output (``nchwToNhwc``, ``nhwcToNchw``); the channels-last
+    model gives it none to transpose. The second forward is profiled, after
+    the weights' packs and cuDNN's first calls."""
+    model = build_model("raft_stereo", device=dev, generator=torch.Generator().manual_seed(0),
+                        dtype=torch.float16, iters=2)
+    g = torch.Generator(device=dev).manual_seed(4)
+    left, right = (torch.randn(1, 64, 128, 3, generator=g, device=dev) for _ in range(2))
+    with torch.inference_mode():
+        model(left, right)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model(left, right)
+            torch.cuda.synchronize()
+    kernels = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("corr1d_lookup" in k for k in kernels), sorted(kernels)  # the profiler saw the card
+    assert not [k for k in kernels if "nchwToNhwc" in k or "nhwcToNchw" in k]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 384, 1248), (2, 96, 17, 23), (1, 128, 5, 3)])
+def test_instance_norm_kernel_matches_the_library(dev, dtype, shape):
+    """``fnet``'s full-size map and ragged ones (channels and pixels not a
+    multiple of a tile) against ``F.instance_norm`` in float32 on the same
+    values, to a few float32 roundings of the largest output (the kernels
+    sum in another order and divide by Triton's float32 division) and, in
+    float16 and bfloat16, one rounding of the format besides (the kernels
+    normalise in float32 and round once). The result stays channels-last;
+    the wrapper counts one launch (of its three kernels)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    b, c = shape[:2]
+    x = 3 * torch.randn(shape, generator=g, device=dev) + 4 * torch.randn(b, c, 1, 1, generator=g, device=dev)
+    x = x.to(dtype, memory_format=torch.channels_last)
+    reset_counts()
+    got = instance_norm(x)
+    assert read_counts()["instance_norm"] == 1
+    assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+    ref = F.instance_norm(x.float().contiguous())
+    atol = 8 * torch.finfo(torch.float32).eps * ref.abs().max().item()
+    rtol = 8 * torch.finfo(torch.float32).eps if dtype == torch.float32 else torch.finfo(dtype).eps
+    torch.testing.assert_close(got.float(), ref, rtol=rtol, atol=atol)
+    with pytest.raises(ValueError, match="channels-last"):
+        instance_norm(x.contiguous())
