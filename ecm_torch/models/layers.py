@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ecm_torch.ops.cuda_gband import gband_conv_s1, hold
+from ecm_torch.ops.cuda_gband import gband_conv_s1
 from ecm_torch.parallel.halo import slab_down, slab_s1, slab_up
 from ecm_torch.parallel.sharding import active_mesh, reduction_mesh, use_mesh
 
@@ -42,8 +42,12 @@ _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
 
 def _trunc_normal_(t: torch.Tensor, fan: int, scale: float, gen: torch.Generator) -> None:
+    """Drawn in f32 into a contiguous tensor and copied into ``t``: the same
+    values, rounded to ``t``'s dtype, whatever its dtype and layout."""
     std = math.sqrt(scale / fan) / _TRUNC_STD
-    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=gen)
+    draw = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    nn.init.trunc_normal_(draw, 0.0, std, -2 * std, 2 * std, generator=gen)
+    t.copy_(draw)
 
 
 @torch.no_grad()
@@ -202,20 +206,9 @@ class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
 
 
 def fold_bn(bn: nn.modules.batchnorm._BatchNorm) -> tuple[torch.Tensor, torch.Tensor]:
-    """Inference-fold a BatchNorm into per-channel f32 (scale, bias). Where
-    no gradient is recorded (the eval kernels' path) the fold is kept on the
-    module and made again only when one of its four tensors moves or changes
-    version, so a served model folds once and the kernels' packed weights,
-    cached with the scale, stay valid."""
-    tensors = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
-    if torch.is_grad_enabled():
-        return _fold_bn(*tensors)
-    key = (tuple((t.data_ptr(), t._version) for t in tensors), torch.is_inference_mode_enabled())
-    kept = bn.__dict__.get("_folded")
-    if kept is None or kept[0] != key:
-        kept = bn.__dict__["_folded"] = (key, *_fold_bn(*tensors))
-    hold(kept[1], kept[2])  # for a graph being captured: the entry may be replaced
-    return kept[1], kept[2]
+    """Inference-fold a BatchNorm into per-channel f32 (scale, bias), made
+    from its four tensors at every call."""
+    return _fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var)
 
 
 def _fold_bn(weight, bias, mean, var) -> tuple[torch.Tensor, torch.Tensor]:

@@ -15,23 +15,26 @@ and no slow-fast GRU.
 
 Layout. Activations are channels-last inside, as the port's other models
 keep them (``ecm_torch/__init__.py``): every tensor that reaches a
-convolution is the channels-first view of an NHWC tensor, and every
-convolution's weight is packed channels-last once per weights version, so
-cuDNN reads and writes NHWC directly and transposes nothing. Instance norm
-is ``ops/instance_norm.py``, since ``F.instance_norm`` returns NCHW. The
+convolution is the channels-first view of an NHWC tensor, and the model
+holds every convolution's weight channels-last, so cuDNN reads and writes
+NHWC directly and transposes nothing. Instance norm is
+``ops/instance_norm.py``, since ``F.instance_norm`` returns NCHW. The
 lookup writes NCHW and its coordinates are NCHW ``[B, 2, H, W]`` float32:
 its output is made channels-last once an iteration, the flow update
 ``delta`` channels-first once an iteration, the mask once a forward.
 
 Precision. ``dtype`` float16 is the published ``--mixed_precision``,
-written as explicit casts where autocast casts: every convolution runs in
-``dtype`` (its weights cast once per weights version by
-``cuda_gband.cached_pack``), the hidden states and the normalisations stay
-in ``dtype``, and the features are widened to float32 for the correlation
-volume, its pyramid and the coordinates, which stay float32. The lookup
-writes ``dtype`` (published: float32, then autocast's cast at ``convc1``).
-The flow enters the motion encoder in ``dtype``, where autocast's cast
-would round it. ``dtype`` float32 computes everything in float32.
+written as explicit casts where autocast casts. The model holds every
+convolution's weight and bias in ``dtype`` (``load_state_dict`` of a
+float32 checkpoint rounds them, as autocast does at each call), so every
+convolution runs in ``dtype``; the BatchNorms' parameters and statistics
+stay float32, as cuDNN's NHWC kernel takes them. The hidden states and the
+normalisations stay in ``dtype``, and the features are widened to float32
+for the correlation volume, its pyramid and the coordinates, which stay
+float32. The lookup writes ``dtype`` (published: float32, then autocast's
+cast at ``convc1``). The flow enters the motion encoder in ``dtype``, where
+autocast's cast would round it. ``dtype`` float32 computes everything in
+float32.
 
 Departures from the published code:
 
@@ -60,7 +63,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from ecm_torch.ops.cuda_corr1d import corr1d_lookup, corr_pyramid
-from ecm_torch.ops.cuda_gband import cached_pack
 from ecm_torch.ops.instance_norm import instance_norm
 from ecm_torch.utils.profiling import span
 
@@ -69,21 +71,9 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 CL = torch.channels_last
 
 
-def _cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
-    if p is None or p.dtype == dtype:
-        return p
-    return cached_pack(p, f"cast.{dtype}", lambda: p.to(dtype))
-
-
-def conv_weight(m: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
-    """``m``'s weight in ``dtype`` and channels-last, packed once per version."""
-    w = m.weight
-    return cached_pack(w, f"channels_last.{dtype}", lambda: w.to(dtype, memory_format=CL))
-
-
 def conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``m`` on the channels-last ``x`` in ``x``'s dtype."""
-    return F.conv2d(x, conv_weight(m, x.dtype), _cast(m.bias, x.dtype), m.stride, m.padding)
+    """``m`` on the channels-last ``x``, in the model's dtype."""
+    return F.conv2d(x, m.weight, m.bias, m.stride, m.padding)
 
 
 class InstanceNorm(nn.Module):
@@ -277,6 +267,9 @@ class RAFTStereo(nn.Module):
                                                   2**n_downsample)
         self.context_zqr_convs = nn.ModuleList(nn.Conv2d(d, 3 * d, 3, padding=1) for d in self.hidden_dims)
         self.fnet = BasicEncoder(256, n_downsample)
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                m.to(dtype, memory_format=CL)
 
     def _image(self, x: torch.Tensor) -> torch.Tensor:
         """ImageNet-normalised ``[B, H, W, 3]`` -> ``2 p / 255 - 1``, the

@@ -15,9 +15,8 @@ On the card the kernel has two routes (:func:`pair_route`): bf16 with Cin a
 multiple of 8, Cm = 32 and Cout 1 or a multiple of 8 up to 32 (every form a
 path of the port launches) runs on the tensor cores through ``wgmma``; f32
 or other channel counts on the CUDA cores. :func:`pair_plan` is each route's
-tiling. The ``wgmma`` route's weights and f32 scale and bias vectors are
-made once per tensor version (:func:`pair_operands`, through
-``cuda_gband.cached_pack``).
+tiling. Every call packs the weights anew (:func:`pair_operands` on the
+``wgmma`` route).
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ecm_torch.kernels.build import check, library
-from ecm_torch.ops.cuda_gband import H100_SMS, SMEM_PER_BLOCK, cached_pack, pack_conv_wgmma, pack_taps
+from ecm_torch.ops.cuda_gband import H100_SMS, SMEM_PER_BLOCK, pack_conv_wgmma, pack_taps
 
 # CUDA-core route: one block per output tile; the stage-1 intermediate over
 # the tile and its one-voxel halo lives in shared memory, at most this many bytes
@@ -160,17 +159,10 @@ def pack_pair_wgmma(k1: torch.Tensor, k2: torch.Tensor) -> tuple[torch.Tensor, t
 
 def pair_operands(k1, scale1, bias1, k2, scale2, bias2, device):
     """The ``wgmma`` route's operands on ``device``: the packed k1 and k2
-    (:func:`pack_pair_wgmma`) and the f32 scale and bias vectors, each made
-    once per tensor version (``cuda_gband.cached_pack``): a served model
-    packs once, an in-place update repacks."""
-    n2 = _wg_n2(k2.shape[0])
+    (:func:`pack_pair_wgmma`) and the f32 scale and bias vectors."""
     with torch.no_grad():
-        k1p = cached_pack(k1, f"pair_k1:{device}", lambda: pack_conv_wgmma(k1.to(device), _WG_CM))
-        k2p = cached_pack(k2, f"pair_k2:{n2}:{device}", lambda: pack_conv_wgmma(k2.to(device), n2))
-        vecs = tuple(
-            cached_pack(v, f"f32:{device}", lambda v=v: v.to(device, torch.float32).contiguous())
-            for v in (scale1, bias1, scale2, bias2)
-        )
+        k1p, k2p = pack_pair_wgmma(k1.to(device), k2.to(device))
+        vecs = tuple(v.to(device, torch.float32).contiguous() for v in (scale1, bias1, scale2, bias2))
     return (k1p, k2p, *vecs)
 
 

@@ -15,8 +15,9 @@ context map ``[B, 1, H, W, Cout]`` broadcast over D, added in f32. Returns
 On the card, bf16 with Cin a multiple of 8 (up to 64) and Cout up to 64 runs
 on the tensor cores (``csrc/conv_wgmma.cuh``: persistent blocks with the
 weights resident in shared memory, wgmma, f32 accumulation), tiled by
-:func:`conv_plan`; f32, or another Cin, on the CUDA cores. Packed weights are
-cached per weight tensor and version (:func:`cached_pack`).
+:func:`conv_plan`; f32, or another Cin, on the CUDA cores. Every call packs
+the weights anew, so a CUDA graph that captures it packs them at each
+replay from the weights as they are then.
 
 :func:`gband_conv_s1` is the training path's differentiable conv (replaces
 ``ecm_tpu/ops/pallas_gband.py::gband_conv_s1`` and its custom VJP): the
@@ -26,7 +27,6 @@ to cuDNN, as it goes to XLA outside any Pallas kernel in JAX.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -34,7 +34,6 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
-from torch.utils.weak import WeakIdKeyDictionary
 
 from ecm_torch.kernels.build import check, library
 
@@ -143,85 +142,6 @@ def conv_plan(
                     _smem(mode, cin_pad, cout_pad, ring), cin_pad, cout_pad)
 
 
-_PACKED = WeakIdKeyDictionary()
-
-# The keep lists of the CUDA graph captures in progress (train/graphs.py). A
-# captured graph reads what cached_pack and layers.fold_bn hand out by
-# address, and those caches replace an entry (a new version, another scale,
-# another grad mode) whether or not a graph still reads the old one.
-_HOLDERS: list[list] = []
-
-
-def hold(*objs) -> None:
-    """Keep ``objs`` alive as long as the graph being captured, if any."""
-    for keep in _HOLDERS:
-        keep.extend(objs)
-
-
-@contextlib.contextmanager
-def holding():
-    """Yields a list that collects, inside the block, everything given to
-    :func:`hold`: a captured graph keeps it, so that no cache can free what
-    the graph reads."""
-    keep: list = []
-    _HOLDERS.append(keep)
-    try:
-        yield keep
-    finally:
-        _HOLDERS.pop()
-
-
-# The depth of the ``uncached()`` blocks open, on any thread (a train step's
-# backward runs on autograd's own).
-_UNCACHED = 0
-
-
-@contextlib.contextmanager
-def uncached():
-    """Inside, :func:`cached_pack` neither reads nor fills its cache: each
-    call packs anew. A CUDA graph of a train step (``train/graphs.py``)
-    updates the weights in place at every replay without moving their
-    versions, so a pack its capture took from the cache would be replayed
-    stale; packed inside the graph, it is packed from each replay's
-    weights."""
-    global _UNCACHED
-    _UNCACHED += 1
-    try:
-        yield
-    finally:
-        _UNCACHED -= 1
-
-
-def _stamp(t: torch.Tensor) -> tuple:
-    """Address and version of t (an inference tensor, which keeps no
-    version, is known by its address and identity alone)."""
-    return t.data_ptr(), None if t.is_inference() else t._version
-
-
-def cached_pack(weight: torch.Tensor, variant: str, make, scale: torch.Tensor | None = None):
-    """``make()``, the packed form ``variant`` of ``weight`` (and of
-    ``scale``, where the pack folds one in), made once per version: the
-    cache is keyed by the weight tensor itself (held weakly), its
-    ``data_ptr()`` and ``_version``, and the scale's identity and version. An
-    in-place update (an optimizer step, ``load_state_dict``) repacks; a
-    served model packs once. The pack is also held for a graph being
-    captured (:func:`hold`). Inside :func:`uncached`, ``make()`` alone."""
-    if _UNCACHED:
-        return make()
-    stamp = (weight.device, _stamp(weight), None if scale is None else _stamp(scale))
-    entries = _PACKED.get(weight)
-    if entries is None:
-        entries = _PACKED[weight] = {}
-    hit = entries.get(variant)
-    if hit is not None and hit[0] == stamp and hit[1] is scale:
-        packed = hit[2]
-    else:
-        packed = make()
-        entries[variant] = (stamp, scale, packed)
-    hold(packed)
-    return packed
-
-
 def pack_taps(k: torch.Tensor, dtype: torch.dtype, pad_to: int) -> torch.Tensor:
     """Conv weight ``[O, I, 3, 3, 3]`` -> f32 ``[27, I, O padded to pad_to]``
     (tap = (kd * 3 + kh) * 3 + kw), rounded to ``dtype`` first: the kernels
@@ -289,8 +209,7 @@ def pack_conv_wgmma(weight: torch.Tensor, cout_pad: int | None = None) -> torch.
 
 def _launch(x, weight, scale, bias, add, stride, relu, what, *, flip=False):
     """The kernel on CUDA tensors. ``flip``: convolve with ``weight`` flipped
-    in (d, h, w) and transposed in (in, out) (the input gradient), packed
-    from ``weight`` itself so that the pack is cached with it."""
+    in (d, h, w) and transposed in (in, out) (the input gradient)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -304,12 +223,8 @@ def _launch(x, weight, scale, bias, add, stride, relu, what, *, flip=False):
     plan = conv_plan("s1" if stride == 1 else "s2", x.dtype, b, d, h, w, cin, cout,
                      torch.cuda.get_device_properties(dev).multi_processor_count)
     tensor_cores = plan.route == "tensor_cores"
-
-    def make():
-        wt = weight.flip(2, 3, 4).transpose(0, 1) if flip else weight
-        return (pack_conv_wgmma(wt) if tensor_cores else pack_taps(wt, x.dtype, _CO)).to(dev)
-
-    wp = cached_pack(weight, f"{plan.route}:{x.dtype}:{'flip' if flip else 'conv'}", make)
+    wt = weight.flip(2, 3, 4).transpose(0, 1) if flip else weight
+    wp = (pack_conv_wgmma(wt) if tensor_cores else pack_taps(wt, x.dtype, _CO)).to(dev)
     s, bb = (v.to(dev, torch.float32).contiguous() for v in (scale, bias))
     out = torch.empty(
         b, (d - 1) // stride + 1, (h - 1) // stride + 1, (w - 1) // stride + 1, cout,

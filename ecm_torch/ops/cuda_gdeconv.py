@@ -17,8 +17,7 @@ On the card, bf16 with Cin a multiple of 8 (up to 64) and Cout up to 64 runs
 on the tensor cores (``csrc/conv_wgmma.cuh`` in its transposed mode: a block
 writes all eight output parity classes of an input tile, each over its legal
 taps; f32 accumulation), tiled by ``cuda_gband.conv_plan``; f32, or another
-Cin, on the CUDA cores. The folded, packed weight is cached per version of
-the weight and the scale (``cuda_gband.cached_pack``).
+Cin, on the CUDA cores. Every call folds and packs the weight anew.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ecm_torch.kernels.build import check, library
-from ecm_torch.ops.cuda_gband import cached_pack, conv_plan, pack_conv_wgmma, pack_taps
+from ecm_torch.ops.cuda_gband import conv_plan, pack_conv_wgmma, pack_taps
 
 _CO = 16  # output channels per thread in the kernel: weights are padded to it
 
@@ -98,13 +97,9 @@ def deconv3d_bn(x, weight, scale, bias, add=None, *, relu=False):
     plan = conv_plan("transposed", x.dtype, b, d, h, w, cin, cout,
                      torch.cuda.get_device_properties(dev).multi_processor_count)
     tensor_cores = plan.route == "tensor_cores"
-
-    def make():
-        # [Cin, Cout, k] -> the conv layout [Cout, Cin, k] that the packers read
-        wf = _fold(weight, scale, x.dtype).transpose(0, 1)
-        return (pack_conv_wgmma(wf) if tensor_cores else pack_taps(wf, x.dtype, _CO)).to(dev)
-
-    wp = cached_pack(weight, f"deconv:{plan.route}:{x.dtype}", make, scale)
+    # [Cin, Cout, k] -> the conv layout [Cout, Cin, k] that the packers read
+    wf = _fold(weight, scale, x.dtype).transpose(0, 1)
+    wp = (pack_conv_wgmma(wf) if tensor_cores else pack_taps(wf, x.dtype, _CO)).to(dev)
     bb = bias.to(dev, torch.float32).contiguous()
     out = torch.empty(b, 2 * d, 2 * h, 2 * w, cout, dtype=x.dtype, device=dev)
     args = (

@@ -15,58 +15,45 @@ it:
 - **Signature** of a forward: the key read before the launch
   (:func:`signature`: the inputs' shapes, dtypes and device, the model's
   resolved aggregation layout, the active mesh, the TF32 flags), and the
-  weights stamp (:func:`weights_stamp`: ``(data_ptr, _version)`` of every
-  parameter and buffer). The packed weights and folded BatchNorms are made
-  in Python caches (``cuda_gband.cached_pack``, ``layers.fold_bn``,
-  ``cuda_fused_agg.pair_operands``) that run only at capture, so a graph
-  captured before an in-place update (an optimizer step, BatchNorm's
-  running statistics, ``load_state_dict``) would replay stale packs and
-  folds. The wrapper keeps one stamp, the one its graphs and sightings were
-  taken under, and keys them by the key alone; a new stamp forgets them all.
-- **The stamp after the launch**: the stamp walks every module (~1 ms at
-  KITTI serving's 539 tensors) and the key microseconds. A graph that
-  writes nothing but its pool and outputs (a forward's: ``Captured.writes``
-  empty) is launched on the key alone, and the stamp is read while the card
-  runs it. Under the graph's stamp its outputs are cloned and returned;
-  under another, the replay is thrown away (never returned nor cloned; its
-  stream is synchronised first, so nothing it reads is freed under it), the
-  graphs and sightings are forgotten, and the call goes on as a miss. No
-  user code runs between the call's start and that read, so a call returns
-  a replay's result only under the stamp it was captured with, as when the
-  stamp was read first; a stamp's change costs one wasted replay. A graph
-  that writes state in place (a train step's) is launched only after its
-  whole key is checked. ``late_checks`` and ``discards`` count the replays
-  checked after their launch and those thrown away.
+  weights stamp (:func:`weights_stamp`: the address of every parameter and
+  buffer). The wrapper keeps one stamp, the one its graphs and sightings
+  were taken under, and keys them by the key alone; a new stamp forgets
+  them all.
+- **Weights by address**: a graph reads the model's parameters and buffers
+  where they live, and makes every derived form of them (the kernels'
+  packed weights, the folded BatchNorms, the casts) inside itself, so each
+  replay derives them from the weights as they are then; nothing caches a
+  derived weight. An update in place (an optimizer step, a replayed train
+  step, BatchNorm's running statistics, ``load_state_dict``) is replayed
+  as it is; only a replaced tensor, which has a new address, moves the
+  stamp. A graph holds every tensor its stamp names (``Captured.held``),
+  so no address it reads is freed or reused while it lives.
+- **The stamp after the launch**: the stamp walks every module, the key
+  takes microseconds. A forward's graph writes nothing but its pool and
+  outputs: it is launched on the key alone, and the stamp is read while
+  the card runs it. Under the graph's stamp its outputs are cloned and
+  returned; under another, the replay is thrown away (never returned nor
+  cloned; its stream is synchronised first, so nothing it reads is freed
+  under it), the graphs and sightings are forgotten, and the call goes on
+  as a miss. No user code runs between the call's start and that read, so
+  a call returns a replay's result only under the stamp it was captured
+  with, as when the stamp was read first; a stamp's change costs one
+  wasted replay. A train step, which writes state in place, is launched
+  only after its whole key is checked. ``late_checks`` and ``discards``
+  count the replays checked after their launch and those thrown away.
 - **Signature** of a train step (:func:`train_signature`): the batch's
   shapes, dtypes and device, the layout, ``remat``, the TF32 flags,
-  ``clip_norm``, and the *addresses* of every parameter, buffer, Adam
-  moment and step count and of the learning-rate tensor
-  (``train/state.py``). No version: every step moves them all. The step's
-  graph updates those tensors in place (what JAX's donation does), and
-  packs inside the graph (``cuda_gband.uncached``), so it stays right as
-  the weights change, and after ``model.load_state_dict``, which copies in
-  place; restoring Adam's state (``train/checkpoint.py``) makes new tensors,
-  and the step is captured again.
-- **A replay moves no version**: it writes the weights, the statistics and
-  Adam's state on the card, unseen by autograd's version counters, which
-  the caches above, the stamps and so every eval graph read to learn that
-  weights changed. After each replay of a train step, every tensor it
-  writes has its version incremented (no kernel), so an eval step after
-  replayed train steps (``finetune``'s validation) drops its graph and packs
-  and folds again.
-- **What a graph reads stays alive**: a graph reads by address the packs
-  and folds those caches handed out during its capture, and a cache may
-  replace its entry later without a stamp moving (an eager forward in
-  another grad mode folds and packs again). Everything the caches hand out
-  during a capture (``cuda_gband.holding``), and every tensor its signature
-  names, is held by the graph, so no address a graph reads is freed or
-  reused while it lives.
+  ``clip_norm``, and the addresses of every parameter, buffer, Adam moment
+  and step count and of the learning-rate tensor (``train/state.py``). The
+  step's graph updates those tensors in place (what JAX's donation does);
+  restoring Adam's state (``train/checkpoint.py``) makes new tensors, and
+  the step is captured again.
 - **Capture on the second sighting**: the first call of a signature runs
   eagerly. A capture costs a warm-up, a sync and a pool of its own, which a
   shape served once (Middlebury's scenes, each its own size; ``test_img``)
   never earns back; ``jax.jit`` compiles on the first call instead.
   The second call warms up with one eager call on a side stream (nvcc
-  builds, cuDNN's and cuBLAS's workspaces, the plan and pack caches and the
+  builds, cuDNN's and cuBLAS's workspaces, the kernels' plans and the
   resize matrices of ``ops/upsample.py``, none of which a capture may do),
   whose outputs are that call's result, and captures; later calls replay.
   A capture runs the function's Python but none of its kernels, so a train
@@ -99,10 +86,9 @@ it:
   ``ecm.graph.stamp`` (a forward's weights stamp) and ``ecm.graph.eager``
   or ``ecm.graph.capture`` (warm-up and capture), or a replay's
   ``ecm.graph.copy_in``, ``ecm.graph.replay`` (the graph's launch), then
-  ``ecm.graph.stamp`` for a forward or ``ecm.graph.bump`` (the versions)
-  for a train step, and ``ecm.graph.copy_out`` (the clones). None of them
-  synchronises with the card (a discarded replay is waited for between its
-  ``ecm.graph.stamp`` and the eager call).
+  ``ecm.graph.stamp`` for a forward, and ``ecm.graph.copy_out`` (the
+  clones). None of them synchronises with the card (a discarded replay is
+  waited for between its ``ecm.graph.stamp`` and the eager call).
 - A failed capture raises, naming the function and its signature. Nothing
   falls back to the eager call. (A train step's warm-up has then been
   applied and its host bookkeeping has not.)
@@ -120,7 +106,6 @@ the host. ``make_train_step`` builds no graph at all under a mesh
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
 import time
 import warnings
@@ -129,7 +114,6 @@ import torch
 from torch import nn
 
 from ecm_torch.ops import launches
-from ecm_torch.ops.cuda_gband import holding, uncached
 from ecm_torch.parallel.sharding import Mesh, active_mesh
 from ecm_torch.utils.profiling import span
 
@@ -181,12 +165,11 @@ def _on_card(t: torch.Tensor) -> bool:
 
 
 def weights_stamp(model: nn.Module) -> tuple:
-    """The stamp of every parameter and buffer of ``model``, as
-    ``cuda_gband._stamp`` takes it, read from the modules' own dicts
-    (:func:`_weights`): this runs on every call, and ``model.parameters()``
-    and ``buffers()``, which build every name on the way, take three times
-    as long."""
-    return tuple((t.data_ptr(), None if t.is_inference() else t._version) for t in _weights(model))
+    """The address of every parameter and buffer of ``model``, read from the
+    modules' own dicts (:func:`_weights`): this runs on every call, and
+    ``model.parameters()`` and ``buffers()``, which build every name on the
+    way, take three times as long."""
+    return tuple(t.data_ptr() for t in _weights(model))
 
 
 def _weights(model: nn.Module) -> list[torch.Tensor]:
@@ -225,8 +208,7 @@ class Captured:
     launches: dict[str, int]  # kernel launches per replay
     capture_ms: float  # warm-up excluded
     pool_bytes: int  # device memory the capture reserved
-    held: list  # the tensors and cached packs and folds that the graph reads
-    writes: list = dataclasses.field(default_factory=list)  # tensors whose version a replay moves
+    held: list  # the tensors its stamp names, which it reads by address
     replays: int = 0
 
 
@@ -235,6 +217,10 @@ class GraphedForward:
     captured the second time a :func:`signature` of ``model`` and the inputs
     is seen, and replayed; eager on CPU tensors and under a mesh of more
     than one rank."""
+
+    # a forward writes only its pool and outputs: launched on the key alone,
+    # its stamp read while the card runs it
+    stamp_after_launch = True
 
     def __init__(self, fn, model: nn.Module):
         self.fn = fn
@@ -267,14 +253,6 @@ class GraphedForward:
         """The tensors besides the inputs that a capture reads by address."""
         return _weights(self.model)
 
-    def _writes(self, args: tuple) -> list[torch.Tensor]:
-        """The tensors besides the outputs that a replay writes."""
-        return []
-
-    def _capturing(self):
-        """The context of a capture (a train step's packs inside the graph)."""
-        return contextlib.nullcontext()
-
     def __call__(self, *args):
         with span("ecm.graph.call"):
             with span("ecm.graph.signature"):
@@ -283,10 +261,7 @@ class GraphedForward:
                 with span("ecm.graph.eager"):
                     return self.fn(*args)
             captured = self.graphs.get(key)
-            # a graph that writes only its pool and outputs is launched on
-            # the key alone, its stamp read while the card runs it; one that
-            # writes state in place runs only under a checked stamp
-            late = captured is not None and not captured.writes
+            late = captured is not None and self.stamp_after_launch
             if not late:
                 stamp = self._stamp(key)
                 if captured is None or stamp != self.stamp:
@@ -300,9 +275,6 @@ class GraphedForward:
                 captured.graph.replay()
                 captured.replays += 1
                 launches.add_replayed(captured.launches)
-            if captured.writes:
-                with span("ecm.graph.bump"):
-                    torch.autograd.graph.increment_version(captured.writes)
             if late:
                 self.late_checks += 1
                 stamp = self._stamp(key)
@@ -355,7 +327,7 @@ class GraphedForward:
         before = launches.read_counts()
         t0 = time.perf_counter()
         try:
-            with holding() as held, self._capturing(), torch.cuda.graph(graph, stream=side):
+            with torch.cuda.graph(graph, stream=side):
                 outputs = self.fn(*inputs)
         except RuntimeError as e:
             # a failed capture's end raises inside torch.cuda.graph's exit,
@@ -381,8 +353,7 @@ class GraphedForward:
             launches={k: after[k] - before[k] for k in after},
             capture_ms=(time.perf_counter() - t0) * 1e3,
             pool_bytes=torch.cuda.memory_reserved(device) - reserved,
-            held=held + self._reads(args),
-            writes=self._writes(args),
+            held=self._reads(args),
         )
         return out
 
@@ -393,6 +364,8 @@ class GraphedTrainStep(GraphedForward):
     model and optimizer in place) captured the second time a
     :func:`train_signature` is seen, and replayed; eager on CPU tensors and
     in ``torch.autograd``'s anomaly mode."""
+
+    stamp_after_launch = False  # it writes state in place: launched under its whole key only
 
     def key(self, args: tuple) -> tuple | None:
         state, *batch = args
@@ -410,9 +383,3 @@ class GraphedTrainStep(GraphedForward):
 
     def _reads(self, args: tuple) -> list[torch.Tensor]:
         return _weights(self.model) + args[0].optimizer.tensors()
-
-    def _writes(self, args: tuple) -> list[torch.Tensor]:
-        return self._reads(args)
-
-    def _capturing(self):
-        return uncached()

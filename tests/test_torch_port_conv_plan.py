@@ -1,16 +1,16 @@
 """The conv kernels' route, tile plan and packed weights
 (``ecm_torch/ops/cuda_gband.py``: ``conv_route``, ``conv_plan``,
-``pack_conv_wgmma``, ``cached_pack``): pure functions of dtypes, shapes and
-weights, which decide what the CUDA kernels are given."""
+``pack_conv_wgmma``) and the BatchNorm fold (``models/layers.fold_bn``):
+pure functions of dtypes, shapes and weights, which decide what the CUDA
+kernels are given."""
 
 import pytest
 import torch
 import torch.nn as nn
 
-from ecm_torch.models.layers import fold_bn
+from ecm_torch.models.layers import _fold_bn, fold_bn
 from ecm_torch.ops.cuda_gband import (
     SMEM_PER_BLOCK,
-    cached_pack,
     conv_plan,
     conv_route,
     pack_conv_wgmma,
@@ -122,33 +122,24 @@ def test_pack_conv_wgmma_unpacks_to_the_weights(cin, cout):
     assert not u[cout:].any() and not u[:, cin:].any()
 
 
-def test_cached_pack_packs_once_per_version():
-    """The same weight gives the same packed tensor until it changes in
-    place; a fresh tensor, or a new scale, never sees another's pack."""
-    w = torch.randn(8, 16, 3, 3, 3)
-    first = cached_pack(w, "conv", lambda: pack_conv_wgmma(w))
-    assert cached_pack(w, "conv", lambda: pack_conv_wgmma(w)) is first
-    w.add_(1.0)
-    second = cached_pack(w, "conv", lambda: pack_conv_wgmma(w))
-    assert second is not first and torch.equal(second, pack_conv_wgmma(w))
-    assert cached_pack(w.clone(), "conv", lambda: pack_conv_wgmma(w)) is not second
-    s1, s2 = torch.rand(8), torch.rand(8)
-    a = cached_pack(w, "folded", lambda: pack_conv_wgmma(w * s1.view(-1, 1, 1, 1, 1)), s1)
-    assert cached_pack(w, "folded", lambda: pack_conv_wgmma(w), s1) is a
-    b = cached_pack(w, "folded", lambda: pack_conv_wgmma(w * s2.view(-1, 1, 1, 1, 1)), s2)
-    assert b is not a and torch.equal(b, pack_conv_wgmma(w * s2.view(-1, 1, 1, 1, 1)))
-    s2.mul_(2.0)
-    assert cached_pack(w, "folded", lambda: pack_conv_wgmma(w), s2) is not b
-
-
 def test_fold_bn_is_kept_without_grad_and_follows_updates():
+    """The fold is ``_fold_bn`` of the module's four tensors as they are at
+    each call, with grad and without, before and after in-place updates of
+    the scale and the statistics: nothing is kept from one call to the
+    next."""
     bn = nn.BatchNorm3d(4)
     with torch.no_grad():
         bn.running_var.uniform_(0.5, 2.0)
-        scale, bias = fold_bn(bn)
-        assert fold_bn(bn)[0] is scale and fold_bn(bn)[1] is bias
-        bn.weight.mul_(2.0)
-        scale2, _ = fold_bn(bn)
-        assert scale2 is not scale and torch.allclose(scale2, 2 * scale)
-    with_grad = fold_bn(bn)[0]
-    assert with_grad.requires_grad and torch.allclose(with_grad, scale2)
+        bn.running_mean.uniform_(-1.0, 1.0)
+    folds = []
+    for update in (lambda: None, lambda: bn.weight.mul_(2.0), lambda: bn.running_var.mul_(4.0)):
+        with torch.no_grad():
+            update()
+            scale, bias = fold_bn(bn)
+            want = _fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var)
+            assert torch.equal(scale, want[0]) and torch.equal(bias, want[1]) and not scale.requires_grad
+            assert fold_bn(bn)[0] is not scale
+        with_grad = fold_bn(bn)
+        assert with_grad[0].requires_grad and torch.equal(with_grad[0], scale) and torch.equal(with_grad[1], bias)
+        folds.append(scale)
+    assert torch.equal(folds[1], 2 * folds[0]) and (folds[2] < folds[1]).all()

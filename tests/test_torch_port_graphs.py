@@ -8,8 +8,6 @@ signature as a pure function, and no graph on CPU tensors. The replays
 themselves run on the card: ``test_torch_port_graphs_cuda.py``."""
 
 import dataclasses
-import gc
-import weakref
 
 import jax
 import jax.numpy as jnp
@@ -23,8 +21,7 @@ from ecm_tpu.train import state as jstate
 from ecm_tpu.train import steps as jsteps
 from ecm_torch.configs import CONFIGS
 from ecm_torch.configs.base import SLICE_OVERRIDES
-from ecm_torch.models.layers import fold_bn
-from ecm_torch.ops import cuda_gband, upsample
+from ecm_torch.ops import upsample
 from ecm_torch.parallel.sharding import Mesh
 from ecm_torch.train import graphs
 from ecm_torch.train.state import create_train_state
@@ -142,8 +139,9 @@ def _args(shape=(1, 32, 48, 3), dtype=torch.float32, device="cpu", seed=0):
 def test_signature_keys_what_a_capture_reads(small_model):
     """The key read before the launch: a pure function of the inputs'
     shapes, dtypes and device, the resolved layout and the mesh; new values
-    of the same inputs leave it as it is, and so does a weight update, which
-    moves the weights stamp read after the launch."""
+    of the same inputs leave it as it is, and so does a weight update. The
+    weights stamp read after the launch is the address of every parameter
+    and buffer, and an in-place update leaves it as it is too."""
     m = small_model
     base = graphs.signature(m, _args(), None)
     assert graphs.signature(m, _args(), None) == base
@@ -162,9 +160,10 @@ def test_signature_keys_what_a_capture_reads(small_model):
         m.agg_layout = "standard"
     assert graphs.signature(m, _args(), None) == base
     stamp = graphs.weights_stamp(m)
+    assert sorted(stamp) == sorted(t.data_ptr() for t in (*m.parameters(), *m.buffers()))
     with torch.no_grad():
         m.aggregation.dres0_1.conv.weight.add_(0.0)
-    assert graphs.signature(m, _args(), None) == base and graphs.weights_stamp(m) != stamp
+    assert graphs.signature(m, _args(), None) == base and graphs.weights_stamp(m) == stamp
 
 
 def _full_signature(m, args) -> tuple:
@@ -174,17 +173,18 @@ def _full_signature(m, args) -> tuple:
 
 def test_signature_moves_with_every_weight_update(small_model):
     """An in-place ``add_`` on a parameter, a BatchNorm's running-statistics
-    update in training mode, and ``load_state_dict`` each give a new
-    signature, by its weights stamp: the graph of the old one would replay
-    stale packs and folds."""
+    update in training mode and ``load_state_dict``, which copies in place,
+    leave the signature as it is: a graph reads the weights where they live
+    and derives its packs and folds from them at each replay. A replaced
+    parameter and ``model.to()`` another dtype make new tensors, and a new
+    signature, by its weights stamp."""
     m = small_model
     args = _args()
     sig = _full_signature(m, args)
     with torch.no_grad():
         m.aggregation.dres0_1.conv.weight.add_(0.0)
-    assert _full_signature(m, args) != sig
+    assert _full_signature(m, args) == sig
 
-    sig = _full_signature(m, args)
     bn = m.feature.firstconv1.bn
     mean = bn.running_mean.clone()
     bn.train()
@@ -194,28 +194,49 @@ def test_signature_moves_with_every_weight_update(small_model):
     finally:
         bn.eval()
     assert not torch.equal(bn.running_mean, mean)
-    assert _full_signature(m, args) != sig
+    assert _full_signature(m, args) == sig
 
-    sig = _full_signature(m, args)
     m.load_state_dict(m.state_dict())
-    assert _full_signature(m, args) != sig
+    assert _full_signature(m, args) == sig
+
+    conv = m.aggregation.dres0_1.conv
+    weight = conv.weight
+    conv.weight = torch.nn.Parameter(weight.detach().clone())
+    try:
+        moved = _full_signature(m, args)
+        assert moved[0] == sig[0] and moved[1] != sig[1]
+    finally:
+        conv.weight = weight
+    assert _full_signature(m, args) == sig
+    m.to(torch.float64)
+    try:
+        moved = _full_signature(m, args)
+        assert moved[0] == sig[0] and moved[1] != sig[1]
+    finally:
+        m.to(torch.float32)
     assert _full_signature(m, args) == _full_signature(m, args)
 
 
-def _fake_forward(monkeypatch, seen: list) -> graphs.GraphedForward:
-    """A graphed forward of a small linear model with the CPU taken for the
-    card, captured by the train-graph tests' fake capture; each call of the
-    function and each capture and replay lands in ``seen``."""
+def _fake_forward(monkeypatch, seen: list, dtype: torch.dtype = torch.float32,
+                  computing: bool = False) -> graphs.GraphedForward:
+    """A graphed forward of a small linear model in ``dtype`` with the CPU
+    taken for the card, captured by the train-graph tests' fake capture
+    (``computing``: whose replays compute the forward on the weights as
+    they are then); each call of the function and each capture and replay
+    lands in ``seen``."""
     monkeypatch.setattr(graphs, "_on_card", lambda x: True)
-    model = torch.nn.Linear(3, 2)
+    model = torch.nn.Linear(3, 2).to(dtype)
 
     @torch.no_grad()
-    def forward(x):
-        seen.append(("fn",))
+    def compute(x):
         return model(x) * 2
 
+    def forward(x):
+        seen.append(("fn",))
+        return compute(x)
+
     g = graphs.GraphedForward(forward, model)
-    monkeypatch.setattr(g, "_capture", fake_capture(g, seen))
+    monkeypatch.setattr(g, "_capture", fake_capture(g, seen, compute=compute if computing else None))
     return g
 
 
@@ -239,7 +260,7 @@ def test_a_replay_reads_its_stamp_after_the_launch(monkeypatch):
 
 
 def test_a_moved_stamp_discards_the_replay(monkeypatch):
-    """After an in-place ``add_`` on a weight the next call launches the
+    """After a weight is replaced by a new tensor the next call launches the
     graph on its key, reads the new stamp after it and throws the replay
     away: it returns the updated model's eager result, never the graph's
     outputs, and leaves no graph and one sighting, under the new stamp. The
@@ -250,8 +271,7 @@ def test_a_moved_stamp_discards_the_replay(monkeypatch):
     for _ in range(3):
         g(x)
     (captured,) = g.graphs.values()
-    with torch.no_grad():
-        g.model.weight.add_(1.0)
+    g.model.weight = torch.nn.Parameter(g.model.weight.detach() + 1.0)
     seen.clear()
     ref = g.fn(x)
     assert not torch.equal(ref, captured.outputs)
@@ -310,38 +330,37 @@ def test_capture_waits_for_the_second_sighting(monkeypatch):
     assert len(g.seen) == graphs.MAX_SEEN and (0,) not in g.seen and not captures[1:]
 
 
-def test_a_capture_holds_what_the_caches_hand_out():
-    """Inside ``cuda_gband.holding`` every pack that ``cached_pack`` hands
-    out, a hit as much as a miss, and the fold that ``fold_bn`` keeps are
-    collected, and stay alive after the caches replace them; outside it
-    nothing is collected."""
-    w = torch.randn(4, 4)
-    with cuda_gband.holding() as held:
-        packed = cuda_gband.cached_pack(w, "test", lambda: w * 2)
-        assert cuda_gband.cached_pack(w, "test", lambda: w * 3) is packed
-    assert [id(x) for x in held] == [id(packed)] * 2
-    gone = weakref.ref(packed)
-    del packed
-    with torch.no_grad():
-        w.add_(1.0)
-    repacked = cuda_gband.cached_pack(w, "test", lambda: w * 2)
-    gc.collect()
-    assert gone() is not None and gone() is not repacked and len(held) == 2
-    del held
-    gc.collect()
-    assert gone() is None
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_an_eval_graph_replays_in_place_updates(monkeypatch, dtype):
+    """A forward's graph, captured once, replays after in-place updates of
+    the weights (what an optimizer step, a replayed train step and
+    ``load_state_dict`` make), with no discard and no new capture, and each
+    replay equals the eager forward on the new weights: the graph reads
+    them where they live. A parameter replaced by a new tensor moves the
+    stamp: that replay is thrown away, and the call after next captures
+    again."""
+    seen = []
+    g = _fake_forward(monkeypatch, seen, dtype, computing=True)
+    x = torch.linspace(-1.0, 1.0, 12).view(4, 3).to(dtype)
+    for _ in range(3):
+        g(x)
+    (captured,) = g.graphs.values()
+    other = torch.nn.Linear(3, 2).to(dtype)
+    updates = (lambda: g.model.weight.mul_(-0.5), lambda: g.model.bias.add_(1.0),
+               lambda: g.model.load_state_dict(other.state_dict()))
+    for i, update in enumerate(updates):
+        before = g.fn(x)
+        with torch.no_grad():
+            update()
+        want = g.fn(x)
+        assert not torch.equal(want, before)
+        assert torch.equal(g(x), want) and captured.replays == i + 2
+    assert list(g.graphs.values()) == [captured] and g.discards == 0
+    assert [s[0] for s in seen].count("capture") == 1
 
-    bn = torch.nn.BatchNorm3d(4).eval()
-    with torch.inference_mode(), cuda_gband.holding() as held:
-        scale, bias = fold_bn(bn)
-    assert [id(x) for x in held] == [id(scale), id(bias)]
-    fold = weakref.ref(scale)
-    del scale, bias
-    with torch.no_grad():
-        fold_bn(bn)  # another grad mode: the module's fold is replaced
-    gc.collect()
-    assert fold() is not None
-    with torch.no_grad():
-        fold_bn(bn)
-        cuda_gband.cached_pack(w, "test", lambda: w * 2)
-    assert len(held) == 2
+    g.model.weight = torch.nn.Parameter(g.model.weight.detach().clone())
+    want = g.fn(x)
+    assert torch.equal(g(x), want) and g.discards == 1 and not g.graphs
+    assert torch.equal(g(x), want) and [s[0] for s in seen].count("capture") == 2
+    (again,) = g.graphs.values()
+    assert again is not captured and torch.equal(g(x), want) and again.replays == 1

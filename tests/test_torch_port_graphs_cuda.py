@@ -13,7 +13,6 @@ import torch
 
 from ecm_torch.configs import CONFIGS
 from ecm_torch.configs.base import SLICE2_OVERRIDES, SLICE_OVERRIDES
-from ecm_torch.ops import cuda_gband
 from ecm_torch.ops.launches import COUNTERS, read_counts, read_replayed, reset_counts
 from ecm_torch.parallel.sharding import Mesh, use_mesh
 from ecm_torch.train.graphs import GraphedForward
@@ -112,18 +111,21 @@ def test_eval_step_replays_the_forward_and_metrics(dev):
 
 
 def test_weight_update_captures_again(dev):
-    """An in-place update of a weight and of BatchNorm statistics, then
-    ``load_state_dict``: each next call replays the old graph, reads the
-    moved stamp after its launch and throws that replay away (``discards``
-    rises by one), drops the graph and runs eagerly; the one after captures
-    again, and all equal the eager forward of the changed model, and so do
-    the replays."""
+    """In-place updates (a weight scaled, BatchNorm statistics scaled,
+    ``load_state_dict`` of another model's weights) are replayed: the graph
+    reads the weights where they live and packs and folds them at each
+    replay, so the call after each update replays the same graph, with no
+    discard, and equals the eager forward of the changed model. A weight
+    replaced by a new tensor moves the stamp: the next call's replay is
+    thrown away (``discards``) and the call runs eagerly, the one after
+    captures again, and all equal the eager forward."""
     model = _model("grouped", dev)
     infer = make_infer_fn(model)
     req = _pair(dev, 7)
     infer(*req)
     infer(*req)
     before = infer(*req)
+    (graph,) = infer.graphs.values()
     other = _model("grouped", dev)
     with torch.no_grad():
         other.aggregation.dres0_1.conv.weight.mul_(1.5)
@@ -136,20 +138,26 @@ def test_weight_update_captures_again(dev):
         with torch.no_grad():
             model.aggregation.classif3.conv1.bn.running_var.mul_(4.0)
 
-    for i, update in enumerate((scale_weight, scale_statistics, lambda: model.load_state_dict(other.state_dict()))):
-        (old,) = infer.graphs.values()
-        replays = old.replays
+    for update in (scale_weight, scale_statistics, lambda: model.load_state_dict(other.state_dict())):
+        replays = graph.replays
         update()
         eager = _eager(model, *req)
         assert not torch.equal(eager, before)
         assert torch.equal(infer(*req), eager)
-        assert not infer.graphs and old.replays == replays + 1 and infer.discards == i + 1
-        assert torch.equal(infer(*req), eager)
-        (new,) = infer.graphs.values()
-        assert new is not old
-        assert torch.equal(infer(*req), eager)
+        assert list(infer.graphs.values()) == [graph] and graph.replays == replays + 1 and infer.discards == 0
         before = eager
-    assert infer.discards == 3
+
+    conv = model.aggregation.dres0_1.conv
+    conv.weight = torch.nn.Parameter(conv.weight.detach() * 2.0)
+    replays = graph.replays
+    eager = _eager(model, *req)
+    assert not torch.equal(eager, before)
+    assert torch.equal(infer(*req), eager)
+    assert not infer.graphs and graph.replays == replays + 1 and infer.discards == 1
+    assert torch.equal(infer(*req), eager)
+    (new,) = infer.graphs.values()
+    assert new is not graph
+    assert torch.equal(infer(*req), eager) and new.replays == 1 and infer.discards == 1
 
 
 @pytest.mark.parametrize("sync", ["item", "pageable_copy"])
@@ -197,35 +205,3 @@ def test_multi_rank_mesh_stays_eager(dev):
     assert not infer.graphs and not infer.seen
     assert read_counts()["fused_upsample_softargmin"] == 2
     assert torch.equal(out, _eager(model, *req))
-
-
-def _cached(model) -> list[torch.Tensor]:
-    """The folds and packs that the model's caches hold now."""
-    out = [t for m in model.modules() if "_folded" in m.__dict__ for t in m.__dict__["_folded"][1:]]
-    for p in model.parameters():
-        for _, _, packed in (cuda_gband._PACKED.get(p) or {}).values():
-            out.extend(packed if isinstance(packed, tuple) else (packed,))
-    return out
-
-
-def test_cache_replacement_keeps_what_a_graph_reads(dev):
-    """A graph reads the folds and packs of its capture by address. Eager
-    forwards with grad enabled and under ``no_grad`` fold and pack again and
-    replace those cache entries without moving any stamp; the memory they
-    freed is then filled with NaN. The replay still equals the eager
-    forward bit for bit: the graph holds what it reads."""
-    model = _model("grouped", dev)
-    infer = make_infer_fn(model)
-    req = _pair(dev, 9)
-    infer(*req)
-    infer(*req)
-    ref = _eager(model, *req)
-    model(*req)
-    with torch.no_grad():
-        model(*req)
-    torch.cuda.synchronize()
-    junk = [torch.full_like(t, float("nan")) for t in _cached(model) for _ in range(4)]
-    assert junk and len(infer.graphs) == 1
-    assert torch.equal(infer(*req), ref)
-    (captured,) = infer.graphs.values()
-    assert captured.replays == 1

@@ -1,6 +1,7 @@
 """Guards of the port: it never imports the JAX package (nor grain, orbax,
-clu or TensorFlow), and its entry points, the CLIs among them, refuse to
-fall back to the CPU when no GPU is present."""
+clu or TensorFlow), its kernel wrappers and models know nothing of CUDA
+graphs, and its entry points, the CLIs among them, refuse to fall back to
+the CPU when no GPU is present."""
 
 import ast
 from pathlib import Path
@@ -42,6 +43,23 @@ def test_port_imports_no_jax():
         if name.split(".")[0] in FORBIDDEN
     ]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("package", ["ops", "models"])
+def test_kernels_and_models_know_no_graph(package):
+    """No module of ``ecm_torch/ops/`` or ``ecm_torch/models/`` imports from
+    ``ecm_torch.train`` or reads a tensor's ``_version``: a CUDA graph reads
+    the weights by address and makes their packs and folds itself
+    (``train/graphs.py``), so no wrapper or model caches a derived weight
+    or learns of a capture."""
+    sources = sorted((ROOT / "ecm_torch" / package).rglob("*.py"))
+    assert len(sources) > 5
+    for path in sources:
+        nodes = list(ast.walk(ast.parse(path.read_text(), str(path))))
+        names = [*_imports(path), *(f"{n.module}.{a.name}" for n in nodes if isinstance(n, ast.ImportFrom)
+                                    for a in n.names)]
+        assert not [n for n in names if n == "ecm_torch.train" or n.startswith("ecm_torch.train.")], path
+        assert not [n for n in nodes if isinstance(n, ast.Attribute) and n.attr == "_version"], path
 
 
 def test_build_model_without_gpu_raises(monkeypatch):

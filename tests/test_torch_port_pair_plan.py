@@ -1,12 +1,11 @@
 """The fused pair's route choice, the ``wgmma`` route's weight packing, its
-tile plan and its operand cache (``ecm_torch/ops/cuda_fused_agg.py``): pure
+tile plan and its operands (``ecm_torch/ops/cuda_fused_agg.py``): pure
 functions of dtypes, shapes and weights, which decide what the CUDA kernel
 is given."""
 
 import pytest
 import torch
 
-from ecm_torch.ops import cuda_fused_agg
 from ecm_torch.ops.cuda_fused_agg import pack_pair_wgmma, pair_operands, pair_plan, pair_route
 
 SMEM_PER_BLOCK = 232_448  # the dynamic shared memory an H100 block may have
@@ -130,31 +129,23 @@ def test_ragged_w_tiles(w, ntw):
     assert plan.recompute == pytest.approx((6 + 2 * -(-6 // plan.tile[0])) * ntw * 6 * 64 / (6 * 4 * w))
 
 
-def test_pair_operands_pack_once_per_version(monkeypatch):
-    """The pair's packed k1 and k2 and its f32 scale and bias vectors are
-    made once per tensor version: a second call packs nothing, an in-place
-    update of one tensor remakes that one alone."""
-    calls, pack = [], cuda_fused_agg.pack_conv_wgmma
-
-    def counting(weight, cout_pad=None):
-        calls.append(tuple(weight.shape))
-        return pack(weight, cout_pad)
-
-    monkeypatch.setattr(cuda_fused_agg, "pack_conv_wgmma", counting)
+def test_pair_operands_pack_once_per_version():
+    """The pair's operands are made from k1, k2 and the vectors as they are
+    at each call: after an in-place update of k1, of k2 or of a scale, the
+    packed weights decode to the new values and the vectors are the new
+    values in f32."""
     g = torch.Generator().manual_seed(0)
     k1, k2 = torch.randn(32, 64, 3, 3, 3, generator=g), torch.randn(1, 32, 3, 3, 3, generator=g)
     # bf16 vectors, so that the f32 copy is a new tensor
     s1, b1, s2, b2 = (torch.randn(n, generator=g).bfloat16() for n in (32, 32, 1, 1))
-    first = pair_operands(k1, s1, b1, k2, s2, b2, "cpu")
-    assert len(calls) == 2 and all(v.dtype == torch.float32 for v in first[2:])
-    again = pair_operands(k1, s1, b1, k2, s2, b2, "cpu")
-    assert len(calls) == 2 and all(a is b for a, b in zip(first, again))
-    k1.add_(1.0)
-    third = pair_operands(k1, s1, b1, k2, s2, b2, "cpu")
-    assert calls[2:] == [(32, 64, 3, 3, 3)]
-    assert third[0] is not first[0] and all(a is b for a, b in zip(first[1:], third[1:]))
-    assert torch.equal(third[0], pack(k1, 32))
-    s2.mul_(2.0)
-    fourth = pair_operands(k1, s1, b1, k2, s2, b2, "cpu")
-    assert len(calls) == 3 and fourth[4] is not third[4] and torch.equal(fourth[4], s2.float())
-    assert all(a is b for i, (a, b) in enumerate(zip(third, fourth)) if i != 4)
+
+    def check():
+        k1p, k2p, *vecs = pair_operands(k1, s1, b1, k2, s2, b2, "cpu")
+        assert torch.equal(_decode(k1p, 32, 64), k1.bfloat16().permute(2, 3, 4, 0, 1).reshape(27, 32, 64))
+        assert torch.equal(_decode(k2p, 8, 32)[:, :1], k2.bfloat16().permute(2, 3, 4, 0, 1).reshape(27, 1, 32))
+        assert all(v.dtype == torch.float32 and torch.equal(v, w.float()) for v, w in zip(vecs, (s1, b1, s2, b2)))
+
+    check()
+    for update in (lambda: k1.add_(1.0), lambda: k2.mul_(-2.0), lambda: s2.mul_(2.0)):
+        update()
+        check()

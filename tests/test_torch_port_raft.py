@@ -4,7 +4,8 @@ small size (2x64x128, 3 iterations, float32) on the benchmark's seeded
 weights: the forward against the plain reference
 ``stereo_bench/reference/raftstereo.py``, the plain lookup against the
 equation, a forward on ``meta`` tensors (nothing read on the host), the
-channels-last layout of every convolution's input and weight, the
+channels-last layout of every convolution's input and weight, the dtype
+and layout the benchmark's build leaves the weights in, the
 channels-last instance norm against ``F.instance_norm``, the published
 state-dict names, the spans, the configuration's build and the ``test_img``
 CLI."""
@@ -32,6 +33,7 @@ from ecm_torch.ops import launches
 from ecm_torch.ops.cuda_corr1d import corr1d_lookup, corr1d_lookup_torch, corr_pyramid
 from ecm_torch.ops.instance_norm import instance_norm
 from stereo_bench import harness, synth
+from stereo_bench.weights import make_weights
 from stereo_bench.families import raftstereo as fam
 
 CPU = torch.device("cpu")
@@ -90,8 +92,7 @@ def test_every_convolution_reads_channels_last(model_and_params, monkeypatch):
     seen, real = [], raft_stereo.conv
 
     def spy(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        w = raft_stereo.conv_weight(m, x.dtype)
-        seen.append((m, x.is_contiguous(memory_format=CL), w.is_contiguous(memory_format=CL)))
+        seen.append((m, x.is_contiguous(memory_format=CL), m.weight.is_contiguous(memory_format=CL)))
         return real(m, x)
 
     monkeypatch.setattr(raft_stereo, "conv", spy)
@@ -103,6 +104,31 @@ def test_every_convolution_reads_channels_last(model_and_params, monkeypatch):
     assert sum(m is model.update_block.gru08.convq for m, _, _ in seen) == ITERS
     bad = [(names[m], x_cl, w_cl) for m, x_cl, w_cl in seen if not (x_cl and w_cl)]
     assert not bad
+
+
+@pytest.mark.parametrize("dtype", ["float16", "float32"])
+def test_the_benchmarks_build_holds_convolutions_in_the_served_dtype(dtype):
+    """The benchmark's path (``families/raftstereo.build``: the model on
+    ``meta``, ``to_empty``, then ``load_state_dict`` of float32 tensors):
+    every convolution's weight and bias is in the configuration's dtype,
+    the weight channels-last, each equal to the loaded tensor cast to that
+    dtype; every BatchNorm's parameters and statistics stay float32."""
+    cfg = small_cfg()
+    cfg["dtype"] = dtype
+    model = fam.build(cfg, CPU)
+    params = make_weights(model.state_dict(), cfg["weights"], 5, CPU)
+    assert all(v.dtype == torch.float32 for v in params.values() if v.is_floating_point())
+    model.load_state_dict(params)
+    want = fam.DTYPES[dtype]
+    convs = {n: m for n, m in model.named_modules() if isinstance(m, nn.Conv2d)}
+    norms = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+    assert len(convs) == 76 and norms
+    for n, m in convs.items():
+        assert m.weight.dtype == m.bias.dtype == want and m.weight.is_contiguous(memory_format=CL), n
+        assert torch.equal(m.weight, params[f"{n}.weight"].to(want)), n
+        assert torch.equal(m.bias, params[f"{n}.bias"].to(want)), n
+    for m in norms:
+        assert all(t.dtype == torch.float32 for t in (m.weight, m.bias, m.running_mean, m.running_var))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])

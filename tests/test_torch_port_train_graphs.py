@@ -3,9 +3,9 @@ train/graphs.py``'s ``GraphedTrainStep``, the counterpart of the donated
 ``jax.jit`` of ``ecm_tpu/train/steps.py::make_train_step``), on the CPU:
 three steps across a learning-rate drop against the JAX package's step in
 f64, the train signature as a pure function, the host's bookkeeping
-through a fake capture and replay, the eager branches, the optimizer's
-state in checkpoints, and the pack cache's rule for a train capture. The
-replays themselves run on the card: ``test_torch_port_train_graphs_cuda.py``."""
+through a fake capture and replay, the eager branches and the optimizer's
+state in checkpoints. The replays themselves run on the card:
+``test_torch_port_train_graphs_cuda.py``."""
 
 import contextlib
 import socket
@@ -206,27 +206,36 @@ def test_train_signature_keys_what_a_capture_reads():
 class FakeGraph:
     """Stands in for a ``torch.cuda.CUDAGraph`` on the CPU: a replay runs no
     kernel (the card tests hold what a replay computes) and records the
-    learning rate it would read."""
+    learning rate it would read; then, where the capture gave it one, it
+    runs ``then`` (what a replay computes, for a forward)."""
 
     def __init__(self, lr: torch.Tensor, seen: list):
-        self.lr, self.seen = lr, seen
+        self.lr, self.seen, self.then = lr, seen, None
 
     def replay(self) -> None:
         self.seen.append(("replay", self.lr.item()))
+        if self.then is not None:
+            self.then()
 
 
-def fake_capture(g: graphs.GraphedForward, seen: list, lr: torch.Tensor | None = None):
+def fake_capture(g: graphs.GraphedForward, seen: list, lr: torch.Tensor | None = None, compute=None):
     """``g._capture`` on the CPU: the warm-up (the call's eager result), then
-    a :class:`Captured` whose graph is a :class:`FakeGraph`."""
+    a :class:`Captured` whose graph is a :class:`FakeGraph`. With
+    ``compute``, each replay sets the graph's outputs to ``compute`` of its
+    static inputs, reading the weights where they live, as a CUDA graph
+    does."""
 
     def capture(key, args):
         out = g.fn(*args)
         seen.append(("capture",))
-        g.graphs[key] = graphs.Captured(
-            FakeGraph(torch.zeros(()) if lr is None else lr, seen),
-            tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args), out,
-            launches={}, capture_ms=0.0, pool_bytes=0, held=[], writes=g._writes(args),
+        graph = FakeGraph(torch.zeros(()) if lr is None else lr, seen)
+        inputs = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        captured = g.graphs[key] = graphs.Captured(
+            graph, inputs, graphs._map(torch.clone, out),
+            launches={}, capture_ms=0.0, pool_bytes=0, held=g._reads(args),
         )
+        if compute is not None:
+            graph.then = lambda: captured.outputs.copy_(compute(*captured.inputs))
         return out
 
     return capture
@@ -237,9 +246,10 @@ def test_bookkeeping_through_a_fake_capture_and_replay(monkeypatch):
     second warms up and captures, later calls replay. ``step`` and
     ``count`` advance once a call, a capture included; the learning-rate
     tensor holds ``lr_at(count)`` before each call, across the drops at 2
-    and 4. After a replay every parameter's, buffer's and Adam tensor's
-    version has moved, so an eval ``GraphedForward`` over the same model
-    drops its graph, and the replay's metrics are new tensors."""
+    and 4; the replay's metrics are new tensors. An eval ``GraphedForward``
+    over the same model, captured between replays, stays and is replayed
+    after later ones, which update the weights in place: its stamp, the
+    weights' addresses, has not moved."""
     monkeypatch.setattr(graphs, "_on_card", lambda x: True)
     state = _state(drops=[(2, 1e-4), (4, 5e-4)])  # optax compounds: 1e-3, 1e-3, 1e-4, 1e-4, 5e-5
     step = make_train_step(state.model, SMALL["max_disp"])
@@ -254,24 +264,22 @@ def test_bookkeeping_through_a_fake_capture_and_replay(monkeypatch):
     lrs = []
     for i in range(5):
         lrs.append(state.optimizer.lr_at(state.optimizer.count))
-        versions = [x._version for x in graphs._weights(state.model) + state.optimizer.tensors()]
         _, metrics = step(state, batch)
         assert state.step == state.optimizer.count == i + 1
         if i == 2:  # the first replay: then an eval graph, captured between replays
-            assert all(x._version > v for x, v in zip(graphs._weights(state.model) + state.optimizer.tensors(),
-                                                       versions))
             (captured,) = g.graphs.values()
             assert all(m is not o and torch.equal(m, o) for m, o in zip(metrics.values(), captured.outputs.values()))
             for _ in range(2):
                 evaluate(state, batch)
-            assert len(evaluate.graphed.graphs) == 1
+            (eval_graph,) = evaluate.graphed.graphs.values()
     assert lrs == pytest.approx([1e-3, 1e-3, 1e-4, 1e-4, 5e-5], rel=1e-12)
     assert [s[0] for s in seen] == ["step", "step", "capture", "replay", "replay", "replay"]
     assert [s[1] for s in seen if len(s) > 1] == lrs
-    # steps 4 and 5 replayed after the eval graph's capture: its stamp moved
-    assert g.graphs[next(iter(g.graphs))].replays == 3
+    assert g.graphs[next(iter(g.graphs))].replays == 3 and g.late_checks == 0
+    # steps 4 and 5 replayed after the eval graph's capture: it is replayed
     evaluate(state, batch)
-    assert not evaluate.graphed.graphs and len(evaluate.graphed.seen) == 1
+    assert list(evaluate.graphed.graphs.values()) == [eval_graph]
+    assert eval_graph.replays == 1 and evaluate.graphed.discards == 0 and not evaluate.graphed.seen
 
 
 @contextlib.contextmanager
@@ -404,32 +412,6 @@ def _same_adam(a: list, b: list) -> bool:
 def _assert_same_model(a, b, what: str) -> None:
     for (name, p), q in zip(a.model.state_dict().items(), b.model.state_dict().values()):
         assert torch.equal(p, q), (what, name)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_a_train_capture_packs_inside_the_graph(dtype):
-    """Inside ``cuda_gband.uncached`` (what ``GraphedTrainStep`` captures
-    under) ``cached_pack`` packs on every call and leaves the cache as it
-    was, for the conv's weight in f32 (``weight.to(x.dtype)`` is the
-    parameter itself, whose cached pack a graph would replay stale) and in
-    bf16 (a new cast each step); outside, a second call is a hit."""
-    param = torch.nn.Parameter(torch.randn(4, 4, 3, 3, 3))
-    weight = param.to(dtype)
-    assert (weight is param) == (dtype == torch.float32)
-    made = []
-
-    def make():
-        made.append(1)
-        return weight * 2
-
-    first = cuda_gband.cached_pack(weight, "test", make)
-    assert cuda_gband.cached_pack(weight, "test", make) is first and len(made) == 1
-    with graphs.GraphedTrainStep(None, torch.nn.Linear(1, 1))._capturing():
-        inside = [cuda_gband.cached_pack(weight, "test", make) for _ in range(2)]
-    assert len(made) == 3 and all(p is not first for p in inside) and inside[0] is not inside[1]
-    assert cuda_gband.cached_pack(weight, "test", make) is first and len(made) == 3
-    with graphs.GraphedForward(None, torch.nn.Linear(1, 1))._capturing():  # an eval capture reads the cache
-        assert cuda_gband.cached_pack(weight, "test", make) is first
 
 
 def test_a_capture_sets_the_launch_counts_back():

@@ -178,12 +178,12 @@ def _eval(model, batch):
 
 def test_eval_after_replayed_steps_sees_the_new_weights(dev):
     """Two steps (eager, capture), an eval step captured on the weights they
-    left, then replayed train steps: the eval step after them equals eval
-    on a fresh model given the same ``state_dict``, bit for bit, and so does
-    an eager forward of the trained model. Without the versions' bump
-    after each replay the eval step replays its old graph, whose packs and
-    folds are the old weights', and differs. The eval graph's replay
-    after them is launched before its stamp is read, and thrown away."""
+    left, then replayed train steps, which update the weights and the
+    BatchNorm statistics in place: the eval step after them replays its
+    graph, with no discard and no new capture, and equals eval on a fresh
+    model given the same ``state_dict``, bit for bit, and so does an eager
+    forward of the trained model. The eval graph packs and folds the
+    weights at each replay, from the tensors the train graph writes."""
     state, batch = _state(dev), _batch(dev)
     step = make_train_step(state.model, MAX_DISP)
     evaluate = make_eval_step(state.model, MAX_DISP)
@@ -194,7 +194,8 @@ def test_eval_after_replayed_steps_sees_the_new_weights(dev):
     assert eval_graph.replays == 1
     _run(state, step, batch, 2)
     disp, metrics = evaluate(state, batch)
-    assert eval_graph.replays == 2 and evaluate.graphed.discards == 1 and not evaluate.graphed.graphs
+    assert eval_graph.replays == 2 and evaluate.graphed.discards == 0
+    assert list(evaluate.graphed.graphs.values()) == [eval_graph]
     fresh = _state(dev).model
     fresh.load_state_dict(state.model.state_dict())
     want_disp, want = _eval(fresh, batch)
