@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one GPU and check it.
 
     python3 chip_smoke.py              # every item below
-    python3 chip_smoke.py --only raft  # the build, RAFT's two kernel checks and item 12
+    python3 chip_smoke.py --only raft  # the build, RAFT's three kernel checks and item 12
 
 1. Builds the port's CUDA kernels (one nvcc per source, in parallel) and
    holds each against its plain PyTorch version at the main paths' shapes
@@ -31,7 +31,14 @@
    shapes (two images: 64 channels at 384x1248, 96 at 192x624, 128 at
    96x312, five norms each) and timed, a pair's 15 norms, against their
    bytes bound and against the library's NCHW ``F.instance_norm``
-   (``check_instance_norm``).
+   (``check_instance_norm``). Its ConvGRU cell's three Triton kernels
+   (``ops/conv_gru.py``: the pack, the gates, the update) are held against
+   their plain versions at the cell's three levels (1/4, 1/8, 1/16, float16)
+   and timed, a forward's 32 cells of each level, by events and by device
+   time against their bytes bound and against the published cell's torch
+   ops that they replace, with the host's time a cell of each, and the pack
+   against one channel ``cat`` (``check_conv_gru``); each kernel's wrapper
+   counts its one launch.
 2. Serves ``CONFIGS["kitti_infer"].model.build(...)`` at full width (seeded
    random weights) along four paths, each with every launch count set to 0
    just before it and read just after:
@@ -215,14 +222,15 @@
    ``raft_kitti_b1`` cell's sizes, seeded random weights) through
    ``make_infer_fn`` on one 384x1248 pair: eager, captured, then one replay
    with every launch count set to 0 just before it, which must equal the
-   eager forward bit for bit and run 32 lookups and 15 instance norms
-   (replayed, none counted by the wrappers) and no other kernel of the port;
+   eager forward bit for bit and run 32 lookups, 15 instance norms and 96
+   ConvGRU cells, 96 launches of each of its three kernels (replayed, none
+   counted by the wrappers) and no other kernel of the port;
    then the graphed and the
    eager forward's median ms, the capture's ms and pool, and the peak
    reserved memory (``raft_phase``).
 13. Prints the ``{"kernels": [...]}`` line (each kernel's launches a
-   forward on its main path: the lookup's and the instance norm's a RAFT
-   replay), the card's name
+   forward on its main path: the lookup's, the instance norm's and each
+   of the ConvGRU's kernels' a RAFT replay), the card's name
    and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits nonzero without the last line.
@@ -267,6 +275,7 @@ from ecm_torch.data.sceneflow import list_sceneflow
 from ecm_torch.data.sceneflow import load_sample as sceneflow_load_sample
 from ecm_torch.kernels import build
 from ecm_torch.models import build_model
+from ecm_torch.ops import conv_gru as grk
 from ecm_torch.ops import cuda_corr1d as corrk
 from ecm_torch.ops import cuda_cost_volume as cvk
 from ecm_torch.ops import cuda_fused_agg as pairk
@@ -326,6 +335,10 @@ LOOKUP = "corr1d_lookup_kernel"
 # norms a forward (the stem's and layer1's at full size, layer2's and
 # layer3's at 1/2 and 1/4, three in each layer's first block)
 FNET_NORMS = (((2, 64, H, W), 5), ((2, 96, H // 2, W // 2), 5), ((2, 128, H // 4, W // 4), 5))
+# the cell's ConvGRU levels (gru08, gru16, gru32 at 1/4, 1/8, 1/16): the
+# inputs' channels beside the state's 128, and the map's size
+GRU_KERNELS = ("conv_gru_pack", "conv_gru_gate", "conv_gru_update")  # each counted by its own wrapper
+GRU_LEVELS = (((128, 128), H // 4, W // 4), ((128, 128), H // 8, W // 8), ((128,), H // 16, W // 16))
 def log(*a) -> None:
     print(*a, flush=True)
 
@@ -839,6 +852,104 @@ def check_instance_norm(gen) -> dict:
     total = {k: sum(r["norms"] * r[k] for r in rows) for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
     return dict(name="instance_norm", route="triton", source="ecm_torch/ops/_instance_norm_triton.py",
                 replaces=None, max_abs_err=err, atol=atol, bound_by="bytes", kernels_a_launch=3,
+                forms=rows, **total)
+
+
+def check_conv_gru(gen) -> dict:
+    """RAFT-Stereo's ConvGRU kernels (``ops/conv_gru.py``: the pack, the
+    gates, the update) at the cell's three levels (``GRU_LEVELS``, float16,
+    a state in (-1, 1)) against their plain versions on the same values, at
+    the tolerance of ``tests/test_torch_port_raft_cuda.py``: the pack bit for
+    bit, the gates and the update within one float16 rounding and a few
+    float32 ones. The times are a forward's (``valid_iters`` cells of each
+    level): the three kernels by events and by device time, the plain
+    versions, and the published cell's 17 torch ops around the same
+    convolutions' outputs that the kernels replace (``library_ms``: three
+    ``cat``s, three bias adds, three context sums, the gates, the products
+    and the update); the bound reads each input once and writes each output
+    once. No TPU kernel has this function."""
+    if (H, W) != (RAFT_CFG["shapes"]["height"], RAFT_CFG["shapes"]["width"]):
+        raise AssertionError(f"GRU_LEVELS: {H}x{W} is not the raft_kitti_b1 cell's size")
+    iters, cl, dt = RAFT_CFG["shapes"]["valid_iters"], torch.channels_last, torch.float16
+    eps = torch.finfo(torch.float32).eps
+    close = dict(rtol=torch.finfo(dt).eps + 8 * eps, atol=8 * eps)
+    rows, err = [], 0.0
+    for inputs, h, w in GRU_LEVELS:
+        def rnd(c, scale=1.0):
+            return (scale * _rnd(gen, 1, c, h, w)).to(dt, memory_format=cl)
+
+        state, xs, zr, q = torch.tanh(rnd(128, 2.0)), tuple(rnd(c) for c in inputs), rnd(256, 2.0), rnd(128, 2.0)
+        cz, cr, cq = rnd(128), rnd(128), rnd(128)
+        bz, br, bq = ((0.5 * _rnd(gen, 128)).to(dt) for _ in range(3))
+        reset_counts()
+        hx = grk.conv_gru_pack(state, xs)
+        plain_hx = grk.conv_gru_pack_torch(state, xs)
+        torch.cuda.synchronize()
+        if not torch.equal(hx, plain_hx):
+            raise AssertionError(f"conv_gru_pack {h}x{w}: not the plain pack bit for bit")
+        z = grk.conv_gru_gate(zr, bz, br, cz, cr, state, hx)
+        plain_z = grk.conv_gru_gate_torch(zr, bz, br, cz, cr, state, plain_hx)
+        new = grk.conv_gru_update(q, bq, cq, plain_z, state)
+        torch.cuda.synchronize()
+        plain_new = grk.conv_gru_update_torch(q, bq, cq, plain_z, state)
+        counted = read_counts()
+        if counted != dict.fromkeys(COUNTERS, 0) | dict.fromkeys(GRU_KERNELS, 1) \
+                or not torch.equal(hx[:, 128:], plain_hx[:, 128:]):
+            raise AssertionError(f"conv_gru {h}x{w}: launches {counted}, one of each of {GRU_KERNELS} expected, or "
+                                 "the gates moved hx's inputs")
+        for got, ref in ((z, plain_z), (hx[:, :128], plain_hx[:, :128]), (new, plain_new)):
+            torch.testing.assert_close(got, ref, **close)
+            err = max(err, (got.float() - ref.float()).abs().max().item())
+        zr_z, zr_r = (t.contiguous(memory_format=cl) for t in zr.split(128, 1))
+
+        def kernels():
+            hx = grk.conv_gru_pack(state, xs)
+            return grk.conv_gru_update(q, bq, cq, grk.conv_gru_gate(zr, bz, br, cz, cr, state, hx), state)
+
+        def plain():
+            hx = grk.conv_gru_pack_torch(state, xs)
+            return grk.conv_gru_update_torch(q, bq, cq, grk.conv_gru_gate_torch(zr, bz, br, cz, cr, state, hx), state)
+
+        def published():  # the published cell's torch ops, zr_z, zr_r and q standing for its convolutions' outputs
+            x = torch.cat(xs, 1)
+            torch.cat([state, x], 1)
+            zg = torch.sigmoid(zr_z + bz[:, None, None] + cz)
+            rg = torch.sigmoid(zr_r + br[:, None, None] + cr)
+            torch.cat([rg * state, x], 1)
+            return (1 - zg) * state + zg * torch.tanh(q + bq[:, None, None] + cq)
+
+        def host_ms(fn, calls=50):  # the host's time a call, the card's queue never full
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            t = time.perf_counter() - t
+            torch.cuda.synchronize()
+            return t / calls * 1e3
+
+        moved = (nbytes(state, *xs, hx)  # the pack
+                 + nbytes(zr, cz, cr, state, bz, br, z, hx[:, :128])  # the gates
+                 + nbytes(q, cq, z, state, bq, new))  # the update
+        rows.append(dict(
+            shape=[1, 128, h, w], inputs=list(inputs), cells=iters, ms=time_ms(kernels),
+            device_ms=device_total_ms(kernels), plain_ms=time_ms(plain), library_ms=time_ms(published),
+            library_device_ms=device_total_ms(published), bound_ms=bound(0, PEAK_BF16_FLOPS, moved)[0],
+            bytes=moved, host_ms=host_ms(kernels), library_host_ms=host_ms(published),
+            pack_device_ms=device_total_ms(lambda: grk.conv_gru_pack(state, xs)),
+            cat_device_ms=device_total_ms(lambda: grk.conv_gru_pack_torch(state, xs)),
+        ))
+        r = rows[-1]
+        log(f"  conv_gru {h}x{w}, inputs {inputs}: {r['ms']:.4f} ms (device {r['device_ms']:.4f}, "
+            f"{moved / r['device_ms'] / 1e6:.0f} GB/s), plain {r['plain_ms']:.4f}, published ops {r['library_ms']:.4f} "
+            f"(device {r['library_device_ms']:.4f}); host {r['host_ms']:.4f}, published ops' {r['library_host_ms']:.4f}; "
+            f"pack device {r['pack_device_ms']:.4f} against one cat {r['cat_device_ms']:.4f}; bound "
+            f"{r['bound_ms']:.4f} ms a cell")
+    total = {k: sum(r["cells"] * r[k] for r in rows)
+             for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms", "host_ms",
+                       "library_host_ms", "pack_device_ms", "cat_device_ms")}
+    return dict(name="conv_gru", route="triton", source="ecm_torch/ops/_conv_gru_triton.py", replaces=None,
+                max_abs_err=err, atol=close["atol"], rtol=close["rtol"], bound_by="bytes", kernels=GRU_KERNELS,
                 forms=rows, **total)
 
 
@@ -2487,8 +2598,10 @@ def raft_phase(card: str) -> dict:
     size (see the module's docstring, item 12): one 384x1248 pair eager,
     captured, then replayed with the launch counts set to 0 just before the
     replay; the replay equal to the eager forward bit for bit, 32 lookups a
-    replay and none counted by the wrapper, and as many instance norms as
-    ``fnet`` has (``FNET_NORMS``: 15); then the graphed and the eager
+    replay and none counted by the wrapper, as many instance norms as
+    ``fnet`` has (``FNET_NORMS``: 15) and three ConvGRU cells an iteration,
+    each a launch of each of ``GRU_KERNELS``;
+    then the graphed and the eager
     forward timed (CUDA events, median of ``RUNS``)."""
     t_phase = time.perf_counter()
     s = RAFT_CFG["shapes"]
@@ -2507,7 +2620,8 @@ def raft_phase(card: str) -> dict:
     replay = infer(left, right)
     torch.cuda.synchronize()
     launches, counted = read_replayed(), read_counts()
-    want = {k: 0 for k in COUNTERS} | {"corr1d_lookup": iters, "instance_norm": sum(n for _, n in FNET_NORMS)}
+    want = {k: 0 for k in COUNTERS} | {"corr1d_lookup": iters, "instance_norm": sum(n for _, n in FNET_NORMS)} \
+        | dict.fromkeys(GRU_KERNELS, 3 * iters)
     if not (captured.launches == launches == eager_launches == want and not any(counted.values())):
         raise AssertionError(f"raft: eager {eager_launches}, captured {captured.launches}, replay counted "
                              f"{counted} and replayed {launches}; {want} a forward expected")
@@ -2528,7 +2642,8 @@ def raft_phase(card: str) -> dict:
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase raft: 384x1248, {iters} iterations, float16: replay equal to eager, {launches['corr1d_lookup']} "
-        f"lookups and {launches['instance_norm']} instance norms a replay; graphed {out['ms_per_forward']:.2f} ms, eager {out['eager_ms_per_forward']:.2f} ms a "
+        f"lookups, {launches['instance_norm']} instance norms and "
+        f"{', '.join(f'{launches[k]} {k}' for k in GRU_KERNELS)} a replay; graphed {out['ms_per_forward']:.2f} ms, eager {out['eager_ms_per_forward']:.2f} ms a "
         f"forward (medians of {RUNS}); capture {out['capture_ms']:.1f} ms, pool {out['pool_bytes']} bytes, peak "
         f"reserved {out['peak_reserved_gb']:.2f} GB; wall {out['wall_s']:.1f} s [{card}]")
     return out
@@ -2537,7 +2652,7 @@ def raft_phase(card: str) -> dict:
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--only", choices=["raft"],
-                   help="raft: the build, RAFT's two kernel checks and the RAFT phase alone (items 1 and 12)")
+                   help="raft: the build, RAFT's three kernel checks and the RAFT phase alone (items 1 and 12)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2575,12 +2690,13 @@ def main(argv: list[str] | None = None) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.only == "raft":
-        kernels = [check_corr1d_lookup(gen), check_instance_norm(gen)]
+        kernels = [check_corr1d_lookup(gen), check_instance_norm(gen), check_conv_gru(gen)]
     else:
         kernels = [
             check_cost_volume(gen), check_fused_pair(gen), check_regression(gen, sm_clock_hz),
             check_conv3d_bn_s1(gen), check_conv3d_bn_down(gen), check_deconv3d_bn(gen),
             check_correlation(gen), check_gband_conv_s1(gen), check_corr1d_lookup(gen), check_instance_norm(gen),
+            check_conv_gru(gen),
         ]
         ranges = check_cost_volume_ranges(gen)
         for k in kernels:
@@ -2598,11 +2714,13 @@ def main(argv: list[str] | None = None) -> int:
     # launches: each kernel's count on its main path (the grouped serving
     # path runs the six slice-1/2 kernels, basic_correlation the correlation
     # kernel, the train path gband_conv_s1: forwards + input gradients, and
-    # the RAFT path the lookup and the instance norm: a replay's)
+    # the RAFT path the lookup, the instance norm and the ConvGRU: a replay's)
     main_path = {"cost_volume_correlation": "basic_correlation", "gband_conv_s1": "train_sceneflow_single",
-                 "corr1d_lookup": "raft_stereo", "instance_norm": "raft_stereo"}
+                 "corr1d_lookup": "raft_stereo", "instance_norm": "raft_stereo", "conv_gru": "raft_stereo"}
     for k in kernels:
-        by_path = {p: r["launches"][k["name"]] for p, r in paths.items() if "launches" in r}
+        # a row of several kernels, each with a counter (the ConvGRU's), reads each kernel's count
+        by_path = {p: {n: r["launches"][n] for n in k["kernels"]} if "kernels" in k else r["launches"][k["name"]]
+                   for p, r in paths.items() if "launches" in r}
         if k["name"] == "gband_conv_s1":
             for p in by_path:
                 by_path[p] += paths[p]["launches"]["gband_conv_s1_input_grad"]

@@ -28,13 +28,17 @@ written as explicit casts where autocast casts. The model holds every
 convolution's weight and bias in ``dtype`` (``load_state_dict`` of a
 float32 checkpoint rounds them, as autocast does at each call), so every
 convolution runs in ``dtype``; the BatchNorms' parameters and statistics
-stay float32, as cuDNN's NHWC kernel takes them. The hidden states and the
-normalisations stay in ``dtype``, and the features are widened to float32
-for the correlation volume, its pyramid and the coordinates, which stay
-float32. The lookup writes ``dtype`` (published: float32, then autocast's
-cast at ``convc1``). The flow enters the motion encoder in ``dtype``, where
-autocast's cast would round it. ``dtype`` float32 computes everything in
-float32.
+stay float32, as cuDNN's NHWC kernel takes them. The GRUs' gates and state
+updates (``ops/conv_gru.py``) add the biases and the context sums to the
+convolutions' ``dtype`` outputs in float32, apply the sigmoids, the tanh
+and the products in float32 and round once where they store (``z``,
+``r h``, the new state), where the published rounds each step under
+autocast. The hidden states and the normalisations stay in ``dtype``, and
+the features are widened to float32 for the correlation volume, its pyramid
+and the coordinates, which stay float32. The lookup writes ``dtype``
+(published: float32, then autocast's cast at ``convc1``). The flow enters
+the motion encoder in ``dtype``, where autocast's cast would round it.
+``dtype`` float32 computes everything in float32.
 
 Departures from the published code:
 
@@ -48,6 +52,10 @@ Departures from the published code:
   the pixel grid are made on the card (the published ``linspace`` is built
   on the host each call) and there is no ``torch.unique`` assert, so a
   forward is one CUDA graph (``train/graphs.py``);
+- each ConvGRU computes ``convz`` and ``convr`` as one convolution of
+  stacked weights, made once a forward, and runs its biases, context sums,
+  gates and update in three kernels (``ops/conv_gru.py``); the state dict
+  keeps the published convolutions;
 - only the x channel of the last flow is upsampled (the published upsamples
   both and keeps x); the result is the disparity ``-flow_x``, ``[B, H, W]``
   float32, the last (and only) entry of the returned list;
@@ -62,6 +70,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ecm_torch.ops.conv_gru import conv_gru_gate, conv_gru_pack, conv_gru_update
 from ecm_torch.ops.cuda_corr1d import corr1d_lookup, corr_pyramid
 from ecm_torch.ops.instance_norm import instance_norm
 from ecm_torch.utils.profiling import span
@@ -171,13 +180,21 @@ class ConvGRU(nn.Module):
         self.convr = nn.Conv2d(hidden + inputs, hidden, 3, padding=1)
         self.convq = nn.Conv2d(hidden + inputs, hidden, 3, padding=1)
 
-    def forward(self, h, cz, cr, cq, *xs):
-        x = torch.cat(xs, 1)
-        hx = torch.cat([h, x], 1)
-        z = torch.sigmoid(conv(self.convz, hx) + cz)
-        r = torch.sigmoid(conv(self.convr, hx) + cr)
-        q = torch.tanh(conv(self.convq, torch.cat([r * h, x], 1)) + cq)
-        return (1 - z) * h + z * q
+    def zr_weight(self) -> torch.Tensor:
+        """``convz``'s and ``convr``'s weights stacked, channels-last: one
+        convolution computes both gates' sums (made once a forward)."""
+        return torch.cat([self.convz.weight, self.convr.weight])
+
+    def forward(self, h, w_zr, cz, cr, cq, *xs):
+        """The published cell (``ops/conv_gru.py``) as five device
+        operations: ``hx = [h | xs]``; one bias-free convolution of ``hx``
+        by ``w_zr`` (:meth:`zr_weight`); the gates, which store ``z`` and
+        leave ``hx = [r h | xs]``; a bias-free ``convq`` of ``hx``; the
+        update. The biases and context sums are added in the gates' and the
+        update's float32."""
+        hx = conv_gru_pack(h, xs)
+        z = conv_gru_gate(F.conv2d(hx, w_zr, None, 1, 1), self.convz.bias, self.convr.bias, cz, cr, h, hx)
+        return conv_gru_update(F.conv2d(hx, self.convq.weight, None, 1, 1), self.convq.bias, cq, z, h)
 
 
 class BasicMotionEncoder(nn.Module):
@@ -227,12 +244,14 @@ class BasicMultiUpdateBlock(nn.Module):
         self.mask = nn.Sequential(nn.Conv2d(hidden_dims[2], 256, 3, padding=1), nn.ReLU(),
                                   nn.Conv2d(256, factor**2 * 9, 1))
 
-    def forward(self, net: list[torch.Tensor], inp: list[tuple], corr: torch.Tensor, flow: torch.Tensor):
+    def forward(self, net: list[torch.Tensor], inp: list[tuple], corr: torch.Tensor, flow: torch.Tensor,
+                w_zr: tuple[torch.Tensor, ...]):
+        """``w_zr``: each level's ``ConvGRU.zr_weight``, in ``inp``'s order."""
         net08, net16, net32 = net
-        net32 = self.gru32(net32, *inp[2], pool2x(net16))
-        net16 = self.gru16(net16, *inp[1], pool2x(net08), interp(net32, net16))
+        net32 = self.gru32(net32, w_zr[2], *inp[2], pool2x(net16))
+        net16 = self.gru16(net16, w_zr[1], *inp[1], pool2x(net08), interp(net32, net16))
         motion = self.encoder(flow, corr)
-        net08 = self.gru08(net08, *inp[0], motion, interp(net16, net08))
+        net08 = self.gru08(net08, w_zr[0], *inp[0], motion, interp(net16, net08))
         delta = self.flow_head(net08)
         mask = 0.25 * conv(self.mask[2], F.relu(conv(self.mask[0], net08)))
         return [net08, net16, net32], mask, delta
@@ -295,11 +314,13 @@ class RAFTStereo(nn.Module):
         ys = torch.arange(h, dtype=torch.float32, device=fmap1.device).view(1, 1, h, 1).expand(b, 1, h, w)
         coords0 = torch.cat([xs, ys], 1)
         coords1 = coords0.clone()
+        ub = self.update_block
+        w_zr = tuple(g.zr_weight() for g in (ub.gru08, ub.gru16, ub.gru32))
         for _ in range(self.iters):
             with span("ecm.raft.update"):
                 corr = corr1d_lookup(pyramid, coords1, self.corr_radius, dt).contiguous(memory_format=CL)
                 flow = (coords1 - coords0).to(dt, memory_format=CL)
-                net, mask, delta = self.update_block(net, inp, corr, flow)
+                net, mask, delta = self.update_block(net, inp, corr, flow, w_zr)
                 delta[:, 1] = 0
                 coords1 = coords1 + delta.contiguous()
         with span("ecm.raft.upsample"):

@@ -11,6 +11,7 @@ its own, :func:`read_replayed`, which :func:`reset_counts` also sets to 0.
 
 from __future__ import annotations
 
+from ecm_torch.ops import conv_gru as grk
 from ecm_torch.ops import cuda_corr1d as corrk
 from ecm_torch.ops import cuda_cost_volume as cvk
 from ecm_torch.ops import cuda_fused_agg as pairk
@@ -32,6 +33,9 @@ COUNTERS = {
     "gband_conv_s1_input_grad": (gbk.gband_conv_s1, "backward_launches"),
     "corr1d_lookup": (corrk.corr1d_lookup, "launches"),
     "instance_norm": (ink.instance_norm, "launches"),
+    "conv_gru_pack": (grk.conv_gru_pack, "launches"),
+    "conv_gru_gate": (grk.conv_gru_gate, "launches"),
+    "conv_gru_update": (grk.conv_gru_update, "launches"),
 }
 
 

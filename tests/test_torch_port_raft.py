@@ -29,7 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 from ecm_torch.cli import test_img
 from ecm_torch.configs import CONFIGS
 from ecm_torch.models import RAFTStereo, build_model, raft_stereo
-from ecm_torch.ops import launches
+from ecm_torch.ops import conv_gru, launches
 from ecm_torch.ops.cuda_corr1d import corr1d_lookup, corr1d_lookup_torch, corr_pyramid
 from ecm_torch.ops.instance_norm import instance_norm
 from stereo_bench import harness, synth
@@ -85,24 +85,37 @@ def test_forward_matches_the_reference(model_and_params, seed):
 def test_every_convolution_reads_channels_last(model_and_params, monkeypatch):
     """Every convolution of a forward (both encoders, the context convs, each
     iteration's) gets a channels-last input and weight, so cuDNN's NHWC
-    convolutions transpose nothing. ``is_contiguous(memory_format=...)``
-    ignores size-1 dimensions, so 1x1 weights and 1-pixel maps pass as
-    they are."""
+    convolutions transpose nothing, and every ``nn.Conv2d``'s weight reaches
+    one: each GRU's ``convz`` and ``convr`` stacked into one bias-free
+    convolution, its ``convq`` bias-free (the gates and the update add their
+    biases), once an iteration. ``is_contiguous(memory_format=...)`` ignores
+    size-1 dimensions, so 1x1 weights and 1-pixel maps pass as they are."""
     _, model, _ = model_and_params
-    seen, real = [], raft_stereo.conv
+    seen, real = [], F.conv2d
 
-    def spy(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        seen.append((m, x.is_contiguous(memory_format=CL), m.weight.is_contiguous(memory_format=CL)))
-        return real(m, x)
+    def spy(x, weight, bias=None, *args, **kwargs):
+        seen.append((weight, bias, x.is_contiguous(memory_format=CL), weight.is_contiguous(memory_format=CL)))
+        return real(x, weight, bias, *args, **kwargs)
 
-    monkeypatch.setattr(raft_stereo, "conv", spy)
+    monkeypatch.setattr(F, "conv2d", spy)
     pair = synth.make_pairs(torch.Generator().manual_seed(5), 1, H, W, 1.0, 12.0, CPU)
     with torch.inference_mode():
         model(pair["left"], pair["right"])
     names = {m: n for n, m in model.named_modules() if isinstance(m, nn.Conv2d)}
-    assert {m for m, _, _ in seen} == set(names)  # every convolution ran through conv()
-    assert sum(m is model.update_block.gru08.convq for m, _, _ in seen) == ITERS
-    bad = [(names[m], x_cl, w_cl) for m, x_cl, w_cl in seen if not (x_cl and w_cl)]
+    ub = model.update_block
+    stacked = {g: torch.cat([g.convz.weight, g.convr.weight]) for g in (ub.gru08, ub.gru16, ub.gru32)}
+    gru_convs = {m for g in stacked for m in (g.convz, g.convr, g.convq)}
+    reached, bad = [], []
+    for w, b, x_cl, w_cl in seen:
+        parts = [m for m in names if w is m.weight] or [
+            m for g, s in stacked.items() if torch.equal(w, s) for m in (g.convz, g.convr)]
+        assert parts and (b is None) == (parts[0] in gru_convs), [names[m] for m in parts]
+        reached.append(parts)
+        if not (x_cl and w_cl):
+            bad.append(([names[m] for m in parts], x_cl, w_cl))
+    assert {m for parts in reached for m in parts} == set(names)  # every convolution's weight was read
+    assert sum(parts == [ub.gru08.convz, ub.gru08.convr] for parts in reached) == ITERS
+    assert sum(parts == [ub.gru08.convq] for parts in reached) == ITERS
     assert not bad
 
 
@@ -151,6 +164,78 @@ def test_instance_norm_keeps_channels_last(dtype):
         ref = ref.to(dtype).float()
         ulp = torch.finfo(dtype).eps * torch.maximum(ref.abs(), torch.tensor(2.0**-14))
         assert ((got.float() - ref).abs() <= ulp).all()
+
+
+def published_cell(g: raft_stereo.ConvGRU, h, cz, cr, cq, *xs, dtype=torch.float32) -> torch.Tensor:
+    """The published ConvGRU in ``dtype`` on copies of ``g``'s weights and of
+    the maps in it: three channel ``cat``s, three biased convolutions,
+    sigmoid and tanh, then ``(1 - z) h + z q``, each rounded to ``dtype``."""
+    conv = lambda m, x: F.conv2d(x, m.weight.to(dtype), m.bias.to(dtype), 1, 1)  # noqa: E731
+    h, cz, cr, cq, *xs = (t.to(dtype) for t in (h, cz, cr, cq, *xs))
+    x = torch.cat(xs, 1)
+    hx = torch.cat([h, x], 1)
+    z = torch.sigmoid(conv(g.convz, hx) + cz)
+    r = torch.sigmoid(conv(g.convr, hx) + cr)
+    q = torch.tanh(conv(g.convq, torch.cat([r * h, x], 1)) + cq)
+    return (1 - z) * h + z * q
+
+
+# each level's state and inputs (gru08 at 1/4: the motion features and
+# gru16's state; gru16: the pooled gru08 and the upsampled gru32; gru32: the
+# pooled gru16), at 1/4, 1/8, 1/16 of a 32x48 image
+GRU_LEVELS = {"gru08": ((128, 128), (8, 12)), "gru16": ((128, 128), (4, 6)), "gru32": ((128,), (2, 3))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("level", GRU_LEVELS)
+def test_conv_gru_cell_is_the_published_formula(level, dtype):
+    """The new cell (the pack, one bias-free convolution of the stacked z and
+    r weights, the gates, a bias-free ``convq``, the update; plain versions
+    on the CPU) against :func:`published_cell` on the same values: in
+    float32 to float32 rounding; in float16 within 2**-10 (a float16 unit in
+    the last place at 1, the state's bound: the cell rounds the
+    convolutions' outputs, ``z``, ``r h`` and the state once each), and on
+    average nearer float32 than the published formula computed in float16,
+    which rounds after each step. Its output stays channels-last."""
+    inputs, (hh, ww) = GRU_LEVELS[level]
+    g = torch.Generator().manual_seed(7)
+    cell = raft_stereo.ConvGRU(128, sum(inputs))
+    with torch.no_grad():
+        for m in (cell.convz, cell.convr, cell.convq):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=g) / m.weight[0].numel() ** 0.5)
+            m.bias.copy_(0.5 * torch.randn(m.bias.shape, generator=g))
+    cell.to(dtype, memory_format=CL)
+    rnd = lambda c: torch.randn(2, c, hh, ww, generator=g).to(dtype, memory_format=CL)  # noqa: E731
+    h = torch.tanh(2 * rnd(128))
+    maps = (h, rnd(128), rnd(128), rnd(128), *(rnd(c) for c in inputs))
+    with torch.inference_mode():
+        got = cell(maps[0], cell.zr_weight(), *maps[1:])
+        ref = published_cell(cell, *maps)
+    assert got.dtype == dtype and got.shape == h.shape and got.is_contiguous(memory_format=CL)
+    err = (got.float() - ref).abs()
+    if dtype == torch.float32:
+        eps = torch.finfo(torch.float32).eps
+        torch.testing.assert_close(got, ref, rtol=4 * eps, atol=4 * eps)
+        return
+    assert err.max() <= 2.0**-10, err.max()
+    with torch.inference_mode():
+        rounded = published_cell(cell, *maps, dtype=dtype)
+    assert err.mean() < (rounded.float() - ref).abs().mean()
+
+
+@pytest.mark.parametrize("pixels, channels, block_p", [
+    (29952, 128, 32), (7488, 128, 32), (1872, 128, 8),  # every kernel of the cell at 1/4, 1/8, 1/16
+    (29952, 384, 8), (1872, 256, 8),  # wider rows than the cell's: TILE caps the rows of a program
+    (1, 128, 1), (100003, 96, 32)])  # one row; a ragged count of rows and of channels
+def test_conv_gru_tiles_follow_the_shapes(pixels, channels, block_p):
+    """A program takes every channel of ``BLOCK_P`` rows: at most ``TILE``
+    elements of a map, and few rows enough that a small map still gives
+    two programs an SM on 132 SMs; powers of two, as ``tl.arange`` needs."""
+    got_p, block_c = conv_gru.plan(pixels, channels, 132)
+    assert (got_p, block_c) == (block_p, 1 << (channels - 1).bit_length())
+    assert got_p * block_c <= conv_gru.TILE or got_p == 1
+    programs = -(-pixels // got_p)
+    assert programs >= min(2 * 132, -(-pixels // (conv_gru.TILE // block_c)))
 
 
 def the_equation(pyramid: list[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:
@@ -259,7 +344,7 @@ def test_spans_one_update_an_iteration(model_and_params):
         model(pair["left"], pair["right"])
     names = [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start) if e.name.startswith("ecm.raft.")]
     assert names == ["ecm.raft.encode", "ecm.raft.volume", *["ecm.raft.update"] * ITERS, "ecm.raft.upsample"]
-    assert launches.read_counts()["corr1d_lookup"] == 0
+    assert launches.read_counts() == dict.fromkeys(launches.COUNTERS, 0)
 
 
 def test_configuration_builds_raft_with_its_own_arguments():
