@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py              # every item below
     python3 chip_smoke.py --only raft  # the build, RAFT's three kernel checks and item 12
+    python3 chip_smoke.py --only igev  # the build, IGEV's two kernel checks and item 13
 
 1. Builds the port's CUDA kernels (one nvcc per source, in parallel) and
    holds each against its plain PyTorch version at the main paths' shapes
@@ -228,9 +229,22 @@
    then the graphed and the
    eager forward's median ms, the capture's ms and pool, and the peak
    reserved memory (``raft_phase``).
-13. Prints the ``{"kernels": [...]}`` line (each kernel's launches a
+13. Serves IGEV-Stereo (``build_model("igev_stereo")``, float16, the
+   ``igev_kitti_b1`` cell's sizes, seeded random weights) the same way: the
+   replay equal to the eager forward bit for bit, one group-wise volume, 32
+   geometry lookups, 12 instance norms and 96 ConvGRU cells a replay and no
+   other kernel of the port; the device operations a replay runs, the
+   graphed and eager medians, the capture and the peak (``igev_phase``).
+   Its two kernels are held in item 1: the combined lookup
+   (``csrc/geo_lookup.cu``) against its plain version at the cell's shape,
+   float16 out, timed against the cell's bound (``check_geo_lookup``); the
+   correlation kernel at 8 groups of 12 float16 channels against its plain
+   version, and at one group (ECM's launch, counted as ECM's) bit for bit
+   the kernel called without ``groups`` (``check_gwc_volume``).
+14. Prints the ``{"kernels": [...]}`` line (each kernel's launches a
    forward on its main path: the lookup's, the instance norm's and each
-   of the ConvGRU's kernels' a RAFT replay), the card's name
+   of the ConvGRU's kernels' a RAFT replay, the geometry lookup's and the
+   group-wise volume's an IGEV replay), the card's name
    and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits nonzero without the last line.
@@ -279,6 +293,7 @@ from ecm_torch.ops import conv_gru as grk
 from ecm_torch.ops import cuda_corr1d as corrk
 from ecm_torch.ops import cuda_cost_volume as cvk
 from ecm_torch.ops import cuda_fused_agg as pairk
+from ecm_torch.ops import cuda_geo_lookup as geok
 from ecm_torch.ops import cuda_gband as gbk
 from ecm_torch.ops import cuda_gdeconv as gdk
 from ecm_torch.ops import cuda_regression as regk
@@ -338,6 +353,13 @@ FNET_NORMS = (((2, 64, H, W), 5), ((2, 96, H // 2, W // 2), 5), ((2, 128, H // 4
 # the cell's ConvGRU levels (gru08, gru16, gru32 at 1/4, 1/8, 1/16): the
 # inputs' channels beside the state's 128, and the map's size
 GRU_KERNELS = ("conv_gru_pack", "conv_gru_gate", "conv_gru_update")  # each counted by its own wrapper
+# the igev_kitti_b1 cell's configuration: the lookup's and the group-wise
+# volume's shapes and bounds, and the IGEV phase's model
+IGEV_CFG = json.loads((Path(__file__).resolve().parent / "stereo_bench" / "configs" / "igev_kitti.json").read_text())
+GEO_LOOKUP = "geo_lookup_kernel"
+# a forward's instance norms in IGEV-Stereo: the feature decoder's 7, the
+# stems' 4, the descriptor's conv's 1 (both images in one call each)
+IGEV_NORMS = 12
 GRU_LEVELS = (((128, 128), H // 4, W // 4), ((128, 128), H // 8, W // 8), ((128,), H // 16, W // 16))
 def log(*a) -> None:
     print(*a, flush=True)
@@ -953,6 +975,83 @@ def check_conv_gru(gen) -> dict:
                 forms=rows, **total)
 
 
+def check_geo_lookup(gen) -> dict:
+    """IGEV-Stereo's combined geometry lookup at the ``igev_kitti_b1`` shape
+    (a 96x312 grid, GEV levels of 48 and 24 planes of 8 channels, the
+    correlation rows of 312 and 156, radius 4, float16 out, as the model
+    calls it) against its plain version, with disparities inside, on and
+    past both ends of each row and at -0.5, at the tolerance of
+    ``tests/test_torch_port_igev_cuda.py``: the plain version's
+    ``grid_sample`` moves a position by up to ~4 float32 units in the last
+    place of the row's length, times the row's slope (at most twice its
+    largest value), and float16 rounds once more. Its bound is the cell's
+    (``stereo_bench/families/igevstereo.lookup_form``, bytes). No TPU
+    kernel has this function."""
+    from stereo_bench import counts
+    from stereo_bench.families import igevstereo
+
+    s = IGEV_CFG["shapes"]
+    h, w, d = s["height"] // 4, s["width"] // 4, s["max_disp"] // 4
+    gev = _rnd(gen, 1, s["volume_channels"], d, h, w).half().contiguous(memory_format=torch.channels_last_3d)
+    geo = geok.geo_pyramid(gev, s["corr_levels"])
+    corr = corrk.corr_pyramid(_rnd(gen, 1, s["descriptor_dim"], h, w), _rnd(gen, 1, s["descriptor_dim"], h, w),
+                              s["corr_levels"], scaled=False)
+    disp = (torch.rand(1, 1, h, w, generator=gen, device="cuda") * 1.4 - 0.2) * d
+    disp.view(-1)[:8] = torch.tensor([-0.5, -1.0, 0.0, d - 1.0, d - 0.5, float(d), -3.7, d + 4.2], device="cuda")
+    r = s["corr_radius"]
+    out = geok.geo_lookup(geo, corr, disp, r, torch.float16)
+    torch.cuda.synchronize()
+    ref = geok.geo_lookup_torch(geo, corr, disp, r)
+    largest = max(t.abs().max().item() for t in (*geo, *corr))
+    atol = 4 * torch.finfo(torch.float32).eps * w * 2 * largest
+    torch.testing.assert_close(out.float(), ref, rtol=torch.finfo(torch.float16).eps, atol=atol)
+    return dict(
+        name="geo_lookup", route="cuda", source="ecm_torch/csrc/geo_lookup.cu", replaces=None,
+        max_abs_err=(out.float() - ref).abs().max().item(), atol=atol,
+        ms=time_ms(lambda: geok.geo_lookup(geo, corr, disp, r, torch.float16)),
+        device_ms=device_ms(lambda: geok.geo_lookup(geo, corr, disp, r, torch.float16), GEO_LOOKUP),
+        plain_ms=time_ms(lambda: geok.geo_lookup_torch(geo, corr, disp, r, torch.float16)),
+        bound_ms=counts.bound_s(igevstereo.lookup_form(IGEV_CFG, 1)) * 1e3, bound_by="bytes", library_ms=None,
+    )
+
+
+def check_gwc_volume(gen) -> dict:
+    """IGEV-Stereo's group-wise volume (``correlation_kernel`` at 8 groups of
+    12 channels, float16, 48 planes of the 96x312 grid) against its plain
+    version, within one float16 rounding (the same float32 products summed
+    in another order, rounded once); and ECM's one-group launch at its
+    kitti_infer shape unchanged: counted as ECM's launch, and bit for bit the
+    kernel called without ``groups``. Its bound is the cell's
+    (``stereo_bench/families/igevstereo.volume_form``, bytes). No TPU kernel
+    has the group-wise form."""
+    from stereo_bench import counts
+    from stereo_bench.families import igevstereo
+
+    s = IGEV_CFG["shapes"]
+    h, w, d, c, g = s["height"] // 4, s["width"] // 4, s["max_disp"] // 4, s["descriptor_dim"], s["groups"]
+    fl, fr = _rnd(gen, 1, h, w, c).half(), _rnd(gen, 1, h, w, c).half()
+    out = cvk.cost_volume_correlation(fl, fr, d, groups=g)
+    torch.cuda.synchronize()
+    ref = cvk.cost_volume_correlation_torch(fl, fr, d, groups=g)
+    err = (out.float() - ref.float()).abs()
+    if not (err <= torch.finfo(torch.float16).eps * ref.float().abs() + 16 * torch.finfo(torch.float32).eps).all():
+        raise AssertionError(f"gwc_volume: max|err| {err.max().item()} beyond one float16 rounding")
+    el, er = _rnd(gen, B, H4, W4, C).bfloat16(), _rnd(gen, B, H4, W4, C).bfloat16()
+    ecm = dict(launches=cvk.cost_volume_correlation.launches, group_launches=cvk.cost_volume_correlation.group_launches)
+    one, default = cvk.cost_volume_correlation(el, er, D4, groups=1), cvk.cost_volume_correlation(el, er, D4)
+    ecm = {k: getattr(cvk.cost_volume_correlation, k) - n for k, n in ecm.items()}
+    if not (torch.equal(one, default) and ecm == dict(launches=2, group_launches=0)):
+        raise AssertionError(f"groups=1 is not ECM's launch: counts {ecm}, equal {torch.equal(one, default)}")
+    return dict(
+        name="gwc_volume", route="cuda", source="ecm_torch/csrc/cost_volume.cu", replaces=None,
+        max_abs_err=err.max().item(), groups=g,
+        ms=time_ms(lambda: cvk.cost_volume_correlation(fl, fr, d, groups=g)),
+        device_ms=device_ms(lambda: cvk.cost_volume_correlation(fl, fr, d, groups=g), CORRELATION),
+        plain_ms=time_ms(lambda: cvk.cost_volume_correlation_torch(fl, fr, d, groups=g)),
+        bound_ms=counts.bound_s(igevstereo.volume_form(IGEV_CFG, 1)) * 1e3, bound_by="bytes", library_ms=None,
+    )
+
+
 def pairs(batch: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     left = torch.rand(batch, H, W, 3, generator=gen, device="cuda")
@@ -1103,9 +1202,10 @@ CONV_CUDA_CORES = "conv3d_bn_kernel"  # the f32 route of conv3d_bn.cu (deconv3d_
 # The conv core: (modes) x Cout_pad 16, 32, 64; the pair: output rows a tile 2
 # x N2 8, 16, 32, and 4 x N2 8; the regression: f32, bf16; the correlation: f32, bf16 x C
 # padded to 8, 16, 32, 64
+# and float16 (IGEV's groups); the geometry lookup: float32, float16, bfloat16
 NO_SPILL = {
     "conv3d_bn": (CONV_WGMMA, 6), "deconv3d_bn": (CONV_WGMMA, 3), "fused_conv3d_pair": (PAIR_WGMMA, 4),
-    "regression": (REGRESSION, 2), "cost_volume": (CORRELATION, 8),
+    "regression": (REGRESSION, 2), "cost_volume": (CORRELATION, 12), "geo_lookup": (GEO_LOOKUP, 3),
 }
 PORT_SYMBOLS = (
     (f"{CONV_WGMMA}<0", "deconv3d_bn"), (CONV_WGMMA, "conv3d_bn"),
@@ -2649,10 +2749,75 @@ def raft_phase(card: str) -> dict:
     return out
 
 
+def igev_phase(card: str) -> dict:
+    """IGEV-Stereo served through ``make_infer_fn`` at the ``igev_kitti_b1``
+    size (see the module's docstring, item 13): one 384x1248 pair eager,
+    captured, then replayed with the launch counts set to 0 just before the
+    replay; the replay equal to the eager forward bit for bit, one group-wise
+    volume, 32 lookups, ``IGEV_NORMS`` instance norms and three ConvGRU cells
+    an iteration a replay, none counted by the wrappers; the device
+    operations a replay runs (torch.profiler); then the graphed and the
+    eager forward timed (CUDA events, median of ``RUNS``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    s = IGEV_CFG["shapes"]
+    iters = s["valid_iters"]
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model("igev_stereo", device="cuda", generator=torch.Generator().manual_seed(0),
+                        dtype=torch.float16, iters=iters, max_disp=s["max_disp"], corr_levels=s["corr_levels"],
+                        corr_radius=s["corr_radius"])
+    infer = make_infer_fn(model)
+    left, right = pairs(1, 701)
+    reset_counts()
+    eager = infer(left, right)
+    eager_launches = read_counts()
+    infer(left, right)
+    (captured,) = infer.graphs.values()
+    reset_counts()
+    replay = infer(left, right)
+    torch.cuda.synchronize()
+    launches, counted = read_replayed(), read_counts()
+    want = {k: 0 for k in COUNTERS} | {"geo_lookup": iters, "gwc_volume": 1, "instance_norm": IGEV_NORMS} \
+        | dict.fromkeys(GRU_KERNELS, 3 * iters)
+    if not (captured.launches == launches == eager_launches == want and not any(counted.values())):
+        raise AssertionError(f"igev: eager {eager_launches}, captured {captured.launches}, replay counted "
+                             f"{counted} and replayed {launches}; {want} a forward expected")
+    if eager.shape != (1, H, W) or not torch.isfinite(eager).all() or not torch.equal(replay, eager):
+        raise AssertionError(f"igev: replay against eager max|diff| {(replay - eager).abs().max().item()}, "
+                             f"shape {tuple(eager.shape)}, finite {torch.isfinite(eager).all().item()}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        infer(left, right)
+        torch.cuda.synchronize()
+    ops = [e for e in device_events(prof) if "Memcpy" not in e.name]
+    graphed_runs = times_ms(lambda: infer(left, right))
+    with torch.inference_mode():
+        eager_runs = times_ms(lambda: model(left, right)[-1])
+    out = dict(
+        card=card, iters=iters, launches=launches, eager_launches=eager_launches, replays=captured.replays,
+        device_ops_a_replay=len(ops), geo_lookups_profiled=sum(GEO_LOOKUP in e.name for e in ops),
+        ms_per_forward=statistics.median(graphed_runs), eager_ms_per_forward=statistics.median(eager_runs),
+        runs_ms=graphed_runs, eager_runs_ms=eager_runs, capture_ms=captured.capture_ms,
+        pool_bytes=captured.pool_bytes, peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+        disparity_range=[eager.min().item(), eager.max().item()],
+    )
+    del model, infer, captured
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase igev: 384x1248, {iters} iterations, float16: replay equal to eager, {launches['gwc_volume']} "
+        f"group-wise volume, {launches['geo_lookup']} lookups, {launches['instance_norm']} instance norms and "
+        f"{', '.join(f'{launches[k]} {k}' for k in GRU_KERNELS)} a replay, {out['device_ops_a_replay']} device "
+        f"ops; graphed {out['ms_per_forward']:.2f} ms, eager {out['eager_ms_per_forward']:.2f} ms a forward "
+        f"(medians of {RUNS}); capture {out['capture_ms']:.1f} ms, pool {out['pool_bytes']} bytes, peak reserved "
+        f"{out['peak_reserved_gb']:.2f} GB; wall {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--only", choices=["raft"],
-                   help="raft: the build, RAFT's three kernel checks and the RAFT phase alone (items 1 and 12)")
+    p.add_argument("--only", choices=["raft", "igev"],
+                   help="raft: the build, RAFT's three kernel checks and the RAFT phase alone (items 1 and 12); "
+                        "igev: the build, IGEV's two kernel checks and the IGEV phase alone (items 1 and 13)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2691,12 +2856,14 @@ def main(argv: list[str] | None = None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.only == "raft":
         kernels = [check_corr1d_lookup(gen), check_instance_norm(gen), check_conv_gru(gen)]
+    elif args.only == "igev":
+        kernels = [check_geo_lookup(gen), check_gwc_volume(gen)]
     else:
         kernels = [
             check_cost_volume(gen), check_fused_pair(gen), check_regression(gen, sm_clock_hz),
             check_conv3d_bn_s1(gen), check_conv3d_bn_down(gen), check_deconv3d_bn(gen),
             check_correlation(gen), check_gband_conv_s1(gen), check_corr1d_lookup(gen), check_instance_norm(gen),
-            check_conv_gru(gen),
+            check_conv_gru(gen), check_geo_lookup(gen), check_gwc_volume(gen),
         ]
         ranges = check_cost_volume_ranges(gen)
         for k in kernels:
@@ -2707,16 +2874,22 @@ def main(argv: list[str] | None = None) -> int:
             f"plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}) [{card}]")
     if args.only == "raft":
         paths = {"raft_stereo": raft_phase(card)}
+    elif args.only == "igev":
+        paths = {"igev_stereo": igev_phase(card)}
     else:
         paths = other_phases(card, gen)
         paths["raft_stereo"] = raft_phase(card)
-    log("phase raft [" + card + "]: " + json.dumps(paths["raft_stereo"]))
+        paths["igev_stereo"] = igev_phase(card)
+    for path in ("raft_stereo", "igev_stereo"):
+        if path in paths:
+            log(f"phase {path.split('_')[0]} [{card}]: " + json.dumps(paths[path]))
     # launches: each kernel's count on its main path (the grouped serving
     # path runs the six slice-1/2 kernels, basic_correlation the correlation
     # kernel, the train path gband_conv_s1: forwards + input gradients, and
     # the RAFT path the lookup, the instance norm and the ConvGRU: a replay's)
     main_path = {"cost_volume_correlation": "basic_correlation", "gband_conv_s1": "train_sceneflow_single",
-                 "corr1d_lookup": "raft_stereo", "instance_norm": "raft_stereo", "conv_gru": "raft_stereo"}
+                 "corr1d_lookup": "raft_stereo", "instance_norm": "raft_stereo", "conv_gru": "raft_stereo",
+                 "geo_lookup": "igev_stereo", "gwc_volume": "igev_stereo"}
     for k in kernels:
         # a row of several kernels, each with a counter (the ConvGRU's), reads each kernel's count
         by_path = {p: {n: r["launches"][n] for n in k["kernels"]} if "kernels" in k else r["launches"][k["name"]]

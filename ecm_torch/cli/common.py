@@ -6,9 +6,10 @@ preset resolution and the train-data iterator.
 Intended differences from the JAX package:
 - ``--device`` (default ``cuda``, which raises without a GPU) lets a caller
   run on the CPU;
-- ``--model raft_stereo`` (the port's own; ``ecm_tpu`` has no RAFT-Stereo)
-  serves RAFT-Stereo at its published sizes, float16 unless ``--no-bf16``;
-  the ECM flags do not reach it, and it has no training step;
+- ``--model raft_stereo`` and ``--model igev_stereo`` (the port's own;
+  ``ecm_tpu`` has neither) serve RAFT-Stereo and IGEV-Stereo at their
+  published sizes, float16 unless ``--no-bf16``; the ECM flags do not reach
+  them, and they have no training step;
 - ``--pallas`` keeps its name and selects the CUDA cost-volume kernel, as
   ``ModelConfig.use_pallas`` does in the port;
 - ``--debug-nans`` turns on ``torch.autograd``'s anomaly detection;
@@ -47,8 +48,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--config", default=None, help="named preset from ecm_torch.configs")
     p.add_argument("--maxdisp", type=int, default=192)
-    p.add_argument("--model", default="stackhourglass", choices=["stackhourglass", "basic", "raft_stereo"],
-                   help="raft_stereo: RAFT-Stereo at its published sizes, serving only (test_img, submission)")
+    p.add_argument("--model", default="stackhourglass", choices=["stackhourglass", "basic", "raft_stereo", "igev_stereo"],
+                   help="raft_stereo, igev_stereo: RAFT-Stereo, IGEV-Stereo at their published sizes, serving only "
+                        "(test_img, submission)")
     p.add_argument("--datapath", default="")
     p.add_argument("--epochs", type=int, default=None, help="epochs (converted to steps)")
     p.add_argument("--steps", type=int, default=None, help="train steps (overrides epochs)")

@@ -50,6 +50,9 @@ def main(argv: list[str] | None = None) -> None:
     maybe_init_distributed(args)
     cfg = resolve_config(args, default_preset="kitti_infer")
 
+    if not args.synthetic and not (args.left and args.right):
+        parser.error("--left/--right or --synthetic required")
+    state, _ = restore(build_state(cfg, args.device, 0), args.loadmodel)
     if args.synthetic:
         from ecm_torch.data.synthetic import make_pair
 
@@ -59,13 +62,12 @@ def main(argv: list[str] | None = None) -> None:
     else:
         from ecm_torch.data.sceneflow import read_rgb
 
-        if not (args.left and args.right):
-            parser.error("--left/--right or --synthetic required")
-        left_n, pads = pad_to_multiple(normalize(read_rgb(args.left)), multiple=16)
-        right_n, _ = pad_to_multiple(normalize(read_rgb(args.right)), multiple=16)
+        # the model's own input multiple where it has one (IGEV-Stereo: 32)
+        multiple = getattr(state.model, "input_multiple", 16)
+        left_n, pads = pad_to_multiple(normalize(read_rgb(args.left)), multiple=multiple)
+        right_n, _ = pad_to_multiple(normalize(read_rgb(args.right)), multiple=multiple)
         gt = None
 
-    state, _ = restore(build_state(cfg, args.device, 0), args.loadmodel)
     device = next(state.model.parameters()).device
     infer = make_infer_fn(state.model)
     left, right = (torch.from_numpy(a)[None].to(device) for a in (left_n, right_n))

@@ -9,9 +9,10 @@ JAX name of the aggregation's layer-kernel dispatch; the port computes it on
 NDHWC volumes. ``remat`` is a training knob (activation checkpointing of the
 hourglasses) with no effect on the eval forward; ``build`` passes it to
 ``ECMStereo`` only, as ``ecm_tpu`` does, so ``ECMBasic`` keeps its default
-(True). ``raft_stereo`` (the port's own; ``ecm_tpu`` has no RAFT-Stereo) takes
-none of the ECM knobs: ``build`` passes it its dtype alone, float16 (the
-published mixed precision) where ``bf16`` is set, and the overrides.
+(True). The models of ``models.DTYPE_ONLY`` (``raft_stereo``, ``igev_stereo``:
+the port's own; ``ecm_tpu`` has neither) take none of the ECM knobs:
+``build`` passes them their dtype alone, float16 (the published mixed
+precision) where ``bf16`` is set, and the overrides.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    name: str = "stackhourglass"  # stackhourglass | basic | raft_stereo
+    name: str = "stackhourglass"  # stackhourglass | basic | raft_stereo | igev_stereo
     max_disp: int = 192
     feature_channels: int = 32
     cost_mode: str = "concat"  # concat | correlation
@@ -36,9 +37,9 @@ class ModelConfig:
     def build(self, device=None, generator=None, **overrides):
         import torch
 
-        from ecm_torch.models import build_model
+        from ecm_torch.models import DTYPE_ONLY, build_model
 
-        if self.name == "raft_stereo":
+        if self.name in DTYPE_ONLY:
             # the published widths and iterations (the model's defaults);
             # "bf16" selects the published mixed precision, float16
             kw = dict(dtype=torch.float16 if self.bf16 else torch.float32)

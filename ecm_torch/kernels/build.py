@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
 )
-KERNELS = ("conv3d_bn", "corr1d", "cost_volume", "deconv3d_bn", "fused_conv3d_pair", "regression")
+KERNELS = ("conv3d_bn", "corr1d", "cost_volume", "deconv3d_bn", "fused_conv3d_pair", "geo_lookup", "regression")
 
 
 def _nvcc() -> str:

@@ -7,11 +7,16 @@ import torch
 from torch import nn
 
 from ecm_torch.models.ecm import ECMBasic, ECMStereo, regress_disparity, resolve_device
+from ecm_torch.models.igev_stereo import IGEVStereo
 from ecm_torch.models.layers import init_weights
 from ecm_torch.models.raft_stereo import RAFTStereo
 
 # build_model's names
-MODELS = {"stackhourglass": ECMStereo, "ecm": ECMStereo, "basic": ECMBasic, "raft_stereo": RAFTStereo}
+MODELS = {"stackhourglass": ECMStereo, "ecm": ECMStereo, "basic": ECMBasic, "raft_stereo": RAFTStereo,
+          "igev_stereo": IGEVStereo}
+# the models that take none of the ECM knobs of ``configs.ModelConfig``: it
+# builds them at their own (published) sizes from a dtype alone
+DTYPE_ONLY = ("raft_stereo", "igev_stereo")
 
 
 def build_model(
@@ -31,4 +36,5 @@ def build_model(
     return model.to(dev).eval()
 
 
-__all__ = ["ECMBasic", "ECMStereo", "MODELS", "RAFTStereo", "build_model", "regress_disparity"]
+__all__ = ["DTYPE_ONLY", "ECMBasic", "ECMStereo", "IGEVStereo", "MODELS", "RAFTStereo", "build_model",
+           "regress_disparity"]

@@ -56,7 +56,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     fan_out (truncated) for convolutions, LeCun-normal fan_in for linear
     layers, zero biases, identity BatchNorm."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d)):
             _trunc_normal_(m.weight, m.out_channels * math.prod(m.kernel_size), 2.0, generator)
         elif isinstance(m, nn.Linear):
             _trunc_normal_(m.weight, m.in_features, 1.0, generator)

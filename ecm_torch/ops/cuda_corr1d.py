@@ -29,11 +29,14 @@ RADIUS = 4  # the only radius the kernel is built for
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
-def corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int) -> list[torch.Tensor]:
+def corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int, scaled: bool = True) -> list[torch.Tensor]:
     """``levels`` float32 ``[B, H, W1, W2 >> i]`` from the float32 features
-    ``[B, C, H, W1]`` and ``[B, C, H, W2]``."""
+    ``[B, C, H, W1]`` and ``[B, C, H, W2]``; ``scaled`` False leaves out the
+    ``1 / sqrt(C)`` (IGEV-Stereo's all-pairs correlation)."""
     b, c, h, w1 = fmap1.shape
-    corr = torch.matmul(fmap1.permute(0, 2, 3, 1), fmap2.permute(0, 2, 1, 3)) / math.sqrt(c)
+    corr = torch.matmul(fmap1.permute(0, 2, 3, 1), fmap2.permute(0, 2, 1, 3))
+    if scaled:
+        corr = corr / math.sqrt(c)
     out = [corr]
     for _ in range(levels - 1):
         w = out[-1].shape[-1]

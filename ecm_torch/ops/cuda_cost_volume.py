@@ -5,8 +5,11 @@ of their CUDA kernels (``ecm_torch/csrc/cost_volume.cu``; replace
 - concat: ``[B, H, W, C]`` x2 -> ``[B, D, H, W, 2C]``: column ``w`` pairs the
   left feature at ``w`` with the right feature at ``w - d``; columns ``w < d``
   are zero in both halves.
-- correlation: ``[B, H, W, C]`` x2 -> ``[B, D, H, W, 1]``: the mean over C of
-  ``fl[w] * fr[w - d]``, in f32, zero for ``w < d``.
+- correlation: ``[B, H, W, C]`` x2 -> ``[B, D, H, W, G]``: for each of
+  ``groups`` G groups of C / G neighbouring channels, the mean over the
+  group of ``fl[w] * fr[w - d]``, in f32, zero for ``w < d``. ECM's volume
+  is G = 1; IGEV-Stereo's group-wise volume is G = 8 (no TPU kernel has
+  it), which needs no backward: its VJP raises.
 
 Every builder takes ``d_start``: plane ``i`` of a volume of ``max_disp``
 planes holds disparity ``d = d_start + i``, so a rank of a disparity-sharded
@@ -43,13 +46,14 @@ def _concat_volume(fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_start: i
     return out
 
 
-def _correlation_volume(fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_start: int = 0) -> torch.Tensor:
-    b, h, w, _ = fl.shape
-    out = fl.new_zeros(b, max_disp, h, w, 1)
+def _correlation_volume(fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_start: int = 0,
+                        groups: int = 1) -> torch.Tensor:
+    b, h, w, c = fl.shape
+    out = fl.new_zeros(b, max_disp, h, w, groups)
     for i in range(max(0, min(max_disp, w - d_start))):
         d = d_start + i
         prod = fl[:, :, d:].float() * fr[:, :, : w - d].float()
-        out[:, i, :, d:] = prod.mean(-1, keepdim=True).to(fl.dtype)
+        out[:, i, :, d:] = prod.view(b, h, w - d, groups, c // groups).mean(-1).to(fl.dtype)
     return out
 
 
@@ -131,7 +135,7 @@ def _kernel(name: str):
     if name == "ecm_cost_volume_concat":
         fn.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp]
     else:
-        fn.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
+        fn.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, i, vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -174,23 +178,44 @@ def _correlation_smem(c: int, max_disp: int) -> int:
     return ((64 + max_disp + 2) // 2 * 2 + 64) * (cp + 2) * 4
 
 
-def _correlation_forward(fl, fr, max_disp, d_start):
+_CORR_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _correlation_forward(fl, fr, max_disp, d_start, groups=1):
     if fl.device.type == "cpu":
-        return _correlation_volume(fl, fr, max_disp, d_start)
-    if fl.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"cost_volume_correlation takes float32 or bfloat16, got {fl.dtype}")
+        return _correlation_volume(fl, fr, max_disp, d_start, groups)
+    if fl.dtype not in _CORR_DTYPES:
+        raise ValueError(f"cost_volume_correlation takes float32, bfloat16 or float16, got {fl.dtype}")
     _check_cuda(fl, fr)
     b, h, w, c = fl.shape
-    if c > 64 or _correlation_smem(c, max_disp) > SMEM_PER_BLOCK:
-        raise ValueError(f"cost_volume_correlation takes C <= 64 and D within shared memory, got {c}, {max_disp}")
-    out = torch.empty(b, max_disp, h, w, 1, dtype=fl.dtype, device=fl.device)
+    if c // groups > 64 or _correlation_smem(c // groups, max_disp) > SMEM_PER_BLOCK:
+        raise ValueError(f"cost_volume_correlation takes C / groups <= 64 and D within shared memory, got "
+                         f"{c} / {groups}, {max_disp}")
+    out = torch.empty(b, max_disp, h, w, groups, dtype=fl.dtype, device=fl.device)
     status = _kernel("ecm_cost_volume_correlation")(
-        int(fl.dtype == torch.bfloat16), fl.data_ptr(), fr.data_ptr(), out.data_ptr(),
-        b, h, w, c, max_disp, d_start, torch.cuda.current_stream(fl.device).cuda_stream,
+        _CORR_DTYPES[fl.dtype], fl.data_ptr(), fr.data_ptr(), out.data_ptr(),
+        b, h, w, c, max_disp, d_start, groups, torch.cuda.current_stream(fl.device).cuda_stream,
     )
     check(status, "cost_volume_correlation")
-    cost_volume_correlation.launches += 1
+    if groups == 1:
+        cost_volume_correlation.launches += 1
+    else:
+        cost_volume_correlation.group_launches += 1
     return out
+
+
+def _no_group_vjp(g, fl, fr, max_disp, d_start):
+    raise NotImplementedError("the group-wise correlation volume (groups > 1) has no backward")
+
+
+def _correlation_parts(fl: torch.Tensor, groups: int, forward):
+    """The volume's forward and VJP for ``groups``: ECM's closed-form VJP at
+    1, none above."""
+    if groups < 1 or fl.shape[-1] % groups:
+        raise ValueError(f"groups {groups} does not divide the {fl.shape[-1]} channels")
+    if groups == 1:
+        return forward, _correlation_vjp
+    return functools.partial(forward, groups=groups), _no_group_vjp
 
 
 class _CostVolume(torch.autograd.Function):
@@ -225,14 +250,14 @@ def cost_volume_concat_torch(fl: torch.Tensor, fr: torch.Tensor, max_disp: int, 
 
 
 def cost_volume_correlation_torch(
-    fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_start: int = 0
+    fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_start: int = 0, groups: int = 1
 ) -> torch.Tensor:
     """Plain PyTorch correlation volume (the CPU path and the kernel's
-    reference): ``max_disp`` planes from disparity ``d_start``, products and
-    mean in f32, rounded to fl's dtype; differentiable through its
-    closed-form VJP."""
+    reference): ``max_disp`` planes from disparity ``d_start``, ``groups``
+    means, products and means in f32, rounded to fl's dtype; differentiable
+    through its closed-form VJP at ``groups`` 1."""
     _check_range(max_disp, d_start)
-    return _CostVolume.apply(fl, fr, max_disp, d_start, _correlation_volume, _correlation_vjp)
+    return _CostVolume.apply(fl, fr, max_disp, d_start, *_correlation_parts(fl, groups, _correlation_volume))
 
 
 def cost_volume_concat(fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_start: int = 0) -> torch.Tensor:
@@ -244,14 +269,17 @@ def cost_volume_concat(fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_star
     return _CostVolume.apply(fl, fr, max_disp, d_start, _concat_forward, _concat_vjp)
 
 
-def cost_volume_correlation(fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_start: int = 0) -> torch.Tensor:
-    """Correlation volume of ``max_disp`` planes from disparity ``d_start``
-    through the CUDA kernel for CUDA tensors; the plain version for CPU
-    tensors. Differentiable. Counts its launches in ``.launches``."""
+def cost_volume_correlation(fl: torch.Tensor, fr: torch.Tensor, max_disp: int, d_start: int = 0,
+                            groups: int = 1) -> torch.Tensor:
+    """Correlation volume of ``max_disp`` planes from disparity ``d_start``,
+    ``groups`` groups, through the CUDA kernel for CUDA tensors; the plain
+    version for CPU tensors. Differentiable at ``groups`` 1. Counts its
+    launches in ``.launches`` (``groups`` 1) and ``.group_launches``."""
     _check(fl, fr)
     _check_range(max_disp, d_start)
-    return _CostVolume.apply(fl, fr, max_disp, d_start, _correlation_forward, _correlation_vjp)
+    return _CostVolume.apply(fl, fr, max_disp, d_start, *_correlation_parts(fl, groups, _correlation_forward))
 
 
 cost_volume_concat.launches = 0
 cost_volume_correlation.launches = 0
+cost_volume_correlation.group_launches = 0

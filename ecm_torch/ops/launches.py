@@ -15,6 +15,7 @@ from ecm_torch.ops import conv_gru as grk
 from ecm_torch.ops import cuda_corr1d as corrk
 from ecm_torch.ops import cuda_cost_volume as cvk
 from ecm_torch.ops import cuda_fused_agg as pairk
+from ecm_torch.ops import cuda_geo_lookup as geok
 from ecm_torch.ops import cuda_gband as gbk
 from ecm_torch.ops import cuda_gdeconv as gdk
 from ecm_torch.ops import cuda_regression as regk
@@ -36,6 +37,8 @@ COUNTERS = {
     "conv_gru_pack": (grk.conv_gru_pack, "launches"),
     "conv_gru_gate": (grk.conv_gru_gate, "launches"),
     "conv_gru_update": (grk.conv_gru_update, "launches"),
+    "geo_lookup": (geok.geo_lookup, "launches"),
+    "gwc_volume": (cvk.cost_volume_correlation, "group_launches"),
 }
 
 

@@ -176,7 +176,8 @@ def test_the_port_opens_spans_only_through_span():
     assert emitted() == {
         "ecm.train.step", "ecm.loop.to_device", "ecm.graph.call", "ecm.graph.signature", "ecm.graph.eager",
         "ecm.graph.capture", "ecm.graph.copy_in", "ecm.graph.replay", "ecm.graph.copy_out",
-        "ecm.graph.stamp", "ecm.raft.encode", "ecm.raft.volume", "ecm.raft.update", "ecm.raft.upsample"}
+        "ecm.graph.stamp", "ecm.raft.encode", "ecm.raft.volume", "ecm.raft.update", "ecm.raft.upsample",
+        "ecm.igev.encode", "ecm.igev.context", "ecm.igev.geometry", "ecm.igev.update", "ecm.igev.upsample"}
 
 
 @pytest.mark.parametrize("name", READERS)
