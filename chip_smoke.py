@@ -1,8 +1,8 @@
 """Drive the PyTorch/CUDA port on one GPU and check it.
 
     python3 chip_smoke.py              # every item below
-    python3 chip_smoke.py --only raft  # the build, RAFT's three kernel checks and item 12
-    python3 chip_smoke.py --only igev  # the build, IGEV's two kernel checks and item 13
+    python3 chip_smoke.py --only raft  # the build, RAFT's four kernel checks and item 12
+    python3 chip_smoke.py --only igev  # the build, IGEV's three kernel checks and item 13
 
 1. Builds the port's CUDA kernels (one nvcc per source, in parallel) and
    holds each against its plain PyTorch version at the main paths' shapes
@@ -39,7 +39,14 @@
    time against their bytes bound and against the published cell's torch
    ops that they replace, with the host's time a cell of each, and the pack
    against one channel ``cat`` (``check_conv_gru``); each kernel's wrapper
-   counts its one launch.
+   counts its one launch. The eval BatchNorm epilogue (``ops/bn_act.py``,
+   one Triton kernel) is held against its plain version at every site of a
+   float16 RAFT-Stereo and IGEV-Stereo forward at the cells' size (the
+   sites recorded over one eager forward, ``bn_act_sites``) and timed, a
+   forward's sites, by events and by device time against their bytes bound
+   and against the library's ops they replace (the conv bias's add,
+   cuDNN's BatchNorm, the activation, the sum), each distinct site alone
+   by device time against its own bound (``check_bn_act``).
 2. Serves ``CONFIGS["kitti_infer"].model.build(...)`` at full width (seeded
    random weights) along four paths, each with every launch count set to 0
    just before it and read just after:
@@ -223,17 +230,19 @@
    ``raft_kitti_b1`` cell's sizes, seeded random weights) through
    ``make_infer_fn`` on one 384x1248 pair: eager, captured, then one replay
    with every launch count set to 0 just before it, which must equal the
-   eager forward bit for bit and run 32 lookups, 15 instance norms and 96
-   ConvGRU cells, 96 launches of each of its three kernels (replayed, none
-   counted by the wrappers) and no other kernel of the port;
+   eager forward bit for bit and run 32 lookups, 15 instance norms, 96
+   ConvGRU cells, 96 launches of each of its three kernels, and ``cnet``'s 33
+   BatchNorm epilogues (replayed, none counted by the wrappers) and no other
+   kernel of the port;
    then the graphed and the
    eager forward's median ms, the capture's ms and pool, and the peak
    reserved memory (``raft_phase``).
 13. Serves IGEV-Stereo (``build_model("igev_stereo")``, float16, the
    ``igev_kitti_b1`` cell's sizes, seeded random weights) the same way: the
    replay equal to the eager forward bit for bit, one group-wise volume, 32
-   geometry lookups, 12 instance norms and 96 ConvGRU cells a replay and no
-   other kernel of the port; the device operations a replay runs, the
+   geometry lookups, 12 instance norms, 96 ConvGRU cells and 104 BatchNorm
+   epilogues a replay and no other kernel of the port, and no cuDNN or ATen
+   BatchNorm kernel in a profiled replay; the device operations a replay runs, the
    graphed and eager medians, the capture and the peak (``igev_phase``).
    Its two kernels are held in item 1: the combined lookup
    (``csrc/geo_lookup.cu``) against its plain version at the cell's shape,
@@ -289,6 +298,7 @@ from ecm_torch.data.sceneflow import list_sceneflow
 from ecm_torch.data.sceneflow import load_sample as sceneflow_load_sample
 from ecm_torch.kernels import build
 from ecm_torch.models import build_model
+from ecm_torch.ops import bn_act as bak
 from ecm_torch.ops import conv_gru as grk
 from ecm_torch.ops import cuda_corr1d as corrk
 from ecm_torch.ops import cuda_cost_volume as cvk
@@ -361,6 +371,13 @@ GEO_LOOKUP = "geo_lookup_kernel"
 # stems' 4, the descriptor's conv's 1 (both images in one call each)
 IGEV_NORMS = 12
 GRU_LEVELS = (((128, 128), H // 4, W // 4), ((128, 128), H // 8, W // 8), ((128,), H // 16, W // 16))
+# a forward's eval BatchNorm epilogues (ops/bn_act.py): cnet's 33 in both
+# models; IGEV's MobileNetV2 48 and BasicConvs 23 besides
+BN_SITES = {"raft_stereo": 33, "igev_stereo": 104}
+BN_ACT = "bn_act_kernel"
+LIBRARY_BN = ("bn_fw", "batch_norm")  # cuDNN's and ATen's BatchNorm kernels
+
+
 def log(*a) -> None:
     print(*a, flush=True)
 
@@ -1050,6 +1067,133 @@ def check_gwc_volume(gen) -> dict:
         plain_ms=time_ms(lambda: cvk.cost_volume_correlation_torch(fl, fr, d, groups=g)),
         bound_ms=counts.bound_s(igevstereo.volume_form(IGEV_CFG, 1)) * 1e3, bound_by="bytes", library_ms=None,
     )
+
+
+def bn_act_sites(name: str) -> list[dict]:
+    """The eval BatchNorm epilogue's sites of one eager float16 forward of
+    ``name`` at its cell's size, in order, each call recorded in place of
+    ``ops/bn_act.bn_act``: the map's shape and the form (conv bias, act,
+    residual, post)."""
+    cfg = {"raft_stereo": RAFT_CFG, "igev_stereo": IGEV_CFG}[name]["shapes"]
+    if (H, W) != (cfg["height"], cfg["width"]):
+        raise AssertionError(f"bn_act_sites: {H}x{W} is not the {name} cell's size")
+    model = build_model(name, device="cuda", generator=torch.Generator().manual_seed(0), dtype=torch.float16,
+                        iters=1)
+    sites, real = [], bak.bn_act
+
+    def record(y, norm, conv_bias=None, act=None, res=None, post=None):
+        sites.append(dict(shape=tuple(y.shape), bias=conv_bias is not None, act=act, res=res is not None, post=post))
+        return real(y, norm, conv_bias, act, res, post)
+
+    record.launches = 0  # the real wrapper counts into the module's bn_act, this one while it records
+    bak.bn_act = record
+    try:
+        with torch.inference_mode():
+            model(*pairs(1, 702))
+    finally:
+        bak.bn_act = real
+    del model
+    torch.cuda.empty_cache()
+    if len(sites) != BN_SITES[name]:
+        raise AssertionError(f"bn_act_sites: {len(sites)} epilogues in a {name} forward, {BN_SITES[name]} expected")
+    return sites
+
+
+def check_bn_act(gen, name: str) -> dict:
+    """The eval BatchNorm epilogue (``ops/bn_act.py``'s Triton kernel) at
+    every site of a ``name`` forward (``bn_act_sites``, float16, the cell's
+    size), each on a map, residual and conv bias of its shape and a
+    BatchNorm far from identity, against its plain version at the
+    tolerance of the card tests: a few float32 units in the last place (the
+    card's ``rsqrt``, fused multiply-adds) and one float16 rounding. The
+    times are a forward's: the kernels by events and by device time, the
+    plain version, and the library's ops that the sites replace
+    (``library_ms``: the conv bias's broadcast add where the convolution has
+    a bias, cuDNN's eval BatchNorm, torch's activation, the residual sum and
+    the second ReLU); the bound reads each map and residual once and writes
+    each map once. Each distinct site (shape and form) is also timed alone by
+    device time against its own bound. No TPU kernel has this function."""
+    eps32, fp16 = torch.finfo(torch.float32).eps, torch.float16
+    calls, err = [], 0.0
+    for site in bn_act_sites(name):
+        shape, c = site["shape"], site["shape"][1]
+        fmt = torch.channels_last if len(shape) == 4 else torch.channels_last_3d
+        bn = (torch.nn.BatchNorm2d if len(shape) == 4 else torch.nn.BatchNorm3d)(c).cuda().eval().requires_grad_(False)
+        bn.running_mean.copy_(_rnd(gen, c, scale=2.0))
+        bn.running_var.copy_(0.1 + 3 * torch.rand(c, generator=gen, device="cuda"))
+        bn.weight.copy_(_rnd(gen, c))
+        bn.bias.copy_(_rnd(gen, c))
+        y = _rnd(gen, *shape, scale=3.0).to(fp16, memory_format=fmt)
+        res = _rnd(gen, *shape).to(fp16, memory_format=fmt) if site["res"] else None
+        cb = _rnd(gen, c, scale=0.5).to(fp16) if site["bias"] else None
+        args = (bn, cb, site["act"], res, site["post"])
+        ref = bak.bn_act_torch(y.clone(), *args)
+        bak.bn_act.launches = 0
+        got = bak.bn_act(y, *args)
+        torch.cuda.synchronize()
+        if bak.bn_act.launches != 1 or not got.is_contiguous(memory_format=fmt):
+            raise AssertionError(f"bn_act {shape}: {bak.bn_act.launches} launches, strides {got.stride()}")
+        torch.testing.assert_close(got.float(), ref.float(), rtol=torch.finfo(fp16).eps + 8 * eps32,
+                                   atol=16 * eps32 * ref.float().abs().max().item())
+        err = max(err, (got.float() - ref.float()).abs().max().item())
+        calls.append((site, y, args, nbytes(y, y, res)))
+
+    def kernels(group=calls):
+        for _, y, args, _ in group:
+            bak.bn_act(y, *args)
+
+    def plain():
+        for _, y, args, _ in calls:
+            bak.bn_act_torch(y, *args)
+
+    def library(group=calls):  # the published ops around the same convolutions' outputs
+        for _, y, (bn, cb, act, res, post), _ in group:
+            t = y if cb is None else y + cb.view(1, -1, *(1,) * (y.ndim - 2))
+            t = bak.ACTS[act](F.batch_norm(t, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps))
+            bak.ACTS[post](t if res is None else res + t)
+
+    def kernels_device_ms(group) -> float:
+        """Device time of ``group``'s launches, by the profiler's
+        ``BN_ACT`` events over ``RUNS`` calls: it drops the first eager
+        Triton launch of a window now and then, so the events it has are
+        scaled to the launches made."""
+        from torch.profiler import ProfilerActivity, profile
+
+        kernels(group)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(RUNS):
+                kernels(group)
+            torch.cuda.synchronize()
+        events = [e for e in device_events(prof) if BN_ACT in e.name]
+        if len(events) < RUNS * len(group) - 1:
+            raise AssertionError(f"bn_act: profiled {len(events)} kernels for {RUNS * len(group)} launches")
+        return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / len(events) * len(group)
+
+    rows = {}
+    for call in calls:
+        site = call[0]
+        rows.setdefault((site["shape"], site["bias"], site["act"], site["res"], site["post"]), []).append(call)
+    forms = []
+    for (shape, bias, act, res, post), group in rows.items():
+        one = group[:1]
+        forms.append(dict(shape=list(shape), bias=bias, act=act, res=res, post=post, sites=len(group),
+                          device_ms=kernels_device_ms(one), bound_ms=bound(0, PEAK_BF16_FLOPS, group[0][3])[0],
+                          library_device_ms=device_total_ms(lambda: library(one))))
+    moved = sum(call[3] for call in calls)
+    out = dict(name=f"bn_act_{name.split('_')[0]}", route="triton", source="ecm_torch/ops/_bn_act_triton.py",
+               replaces=None, kernels=("bn_act",), model=name, sites=len(calls), max_abs_err=err, bound_by="bytes",
+               bytes=moved, bound_ms=bound(0, PEAK_BF16_FLOPS, moved)[0], ms=time_ms(kernels),
+               device_ms=kernels_device_ms(calls), plain_ms=time_ms(plain), library_ms=time_ms(library),
+               library_device_ms=device_total_ms(library), forms=forms)
+    for f in forms:
+        log(f"  bn_act {name} {f['shape']} bias {f['bias']} act {f['act']} res {f['res']} post {f['post']} "
+            f"x{f['sites']}: device {f['device_ms']:.4f} ms, bound {f['bound_ms']:.4f} "
+            f"({100 * f['bound_ms'] / f['device_ms']:.1f} %)")
+    log(f"  bn_act {name}: {len(calls)} sites, {moved / 1e9:.3f} GB: {out['ms']:.4f} ms by events, device "
+        f"{out['device_ms']:.4f} ({moved / out['device_ms'] / 1e6:.0f} GB/s), bound {out['bound_ms']:.4f}; plain "
+        f"{out['plain_ms']:.4f}; library {out['library_ms']:.4f} by events, device {out['library_device_ms']:.4f}")
+    return out
 
 
 def pairs(batch: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -2699,9 +2843,9 @@ def raft_phase(card: str) -> dict:
     captured, then replayed with the launch counts set to 0 just before the
     replay; the replay equal to the eager forward bit for bit, 32 lookups a
     replay and none counted by the wrapper, as many instance norms as
-    ``fnet`` has (``FNET_NORMS``: 15) and three ConvGRU cells an iteration,
-    each a launch of each of ``GRU_KERNELS``;
-    then the graphed and the eager
+    ``fnet`` has (``FNET_NORMS``: 15), three ConvGRU cells an iteration,
+    each a launch of each of ``GRU_KERNELS``, and ``cnet``'s BatchNorm
+    epilogues (``BN_SITES``); then the graphed and the eager
     forward timed (CUDA events, median of ``RUNS``)."""
     t_phase = time.perf_counter()
     s = RAFT_CFG["shapes"]
@@ -2720,8 +2864,8 @@ def raft_phase(card: str) -> dict:
     replay = infer(left, right)
     torch.cuda.synchronize()
     launches, counted = read_replayed(), read_counts()
-    want = {k: 0 for k in COUNTERS} | {"corr1d_lookup": iters, "instance_norm": sum(n for _, n in FNET_NORMS)} \
-        | dict.fromkeys(GRU_KERNELS, 3 * iters)
+    want = {k: 0 for k in COUNTERS} | {"corr1d_lookup": iters, "instance_norm": sum(n for _, n in FNET_NORMS),
+                                       "bn_act": BN_SITES["raft_stereo"]} | dict.fromkeys(GRU_KERNELS, 3 * iters)
     if not (captured.launches == launches == eager_launches == want and not any(counted.values())):
         raise AssertionError(f"raft: eager {eager_launches}, captured {captured.launches}, replay counted "
                              f"{counted} and replayed {launches}; {want} a forward expected")
@@ -2743,7 +2887,8 @@ def raft_phase(card: str) -> dict:
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase raft: 384x1248, {iters} iterations, float16: replay equal to eager, {launches['corr1d_lookup']} "
         f"lookups, {launches['instance_norm']} instance norms and "
-        f"{', '.join(f'{launches[k]} {k}' for k in GRU_KERNELS)} a replay; graphed {out['ms_per_forward']:.2f} ms, eager {out['eager_ms_per_forward']:.2f} ms a "
+        f"{', '.join(f'{launches[k]} {k}' for k in GRU_KERNELS)}, {launches['bn_act']} BatchNorm epilogues a replay; "
+        f"graphed {out['ms_per_forward']:.2f} ms, eager {out['eager_ms_per_forward']:.2f} ms a "
         f"forward (medians of {RUNS}); capture {out['capture_ms']:.1f} ms, pool {out['pool_bytes']} bytes, peak "
         f"reserved {out['peak_reserved_gb']:.2f} GB; wall {out['wall_s']:.1f} s [{card}]")
     return out
@@ -2754,9 +2899,10 @@ def igev_phase(card: str) -> dict:
     size (see the module's docstring, item 13): one 384x1248 pair eager,
     captured, then replayed with the launch counts set to 0 just before the
     replay; the replay equal to the eager forward bit for bit, one group-wise
-    volume, 32 lookups, ``IGEV_NORMS`` instance norms and three ConvGRU cells
-    an iteration a replay, none counted by the wrappers; the device
-    operations a replay runs (torch.profiler); then the graphed and the
+    volume, 32 lookups, ``IGEV_NORMS`` instance norms, three ConvGRU cells
+    an iteration and ``BN_SITES`` BatchNorm epilogues a replay, none counted
+    by the wrappers; the device operations a replay runs (torch.profiler),
+    among them the epilogues and no library BatchNorm; then the graphed and the
     eager forward timed (CUDA events, median of ``RUNS``)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2778,8 +2924,8 @@ def igev_phase(card: str) -> dict:
     replay = infer(left, right)
     torch.cuda.synchronize()
     launches, counted = read_replayed(), read_counts()
-    want = {k: 0 for k in COUNTERS} | {"geo_lookup": iters, "gwc_volume": 1, "instance_norm": IGEV_NORMS} \
-        | dict.fromkeys(GRU_KERNELS, 3 * iters)
+    want = {k: 0 for k in COUNTERS} | {"geo_lookup": iters, "gwc_volume": 1, "instance_norm": IGEV_NORMS,
+                                       "bn_act": BN_SITES["igev_stereo"]} | dict.fromkeys(GRU_KERNELS, 3 * iters)
     if not (captured.launches == launches == eager_launches == want and not any(counted.values())):
         raise AssertionError(f"igev: eager {eager_launches}, captured {captured.launches}, replay counted "
                              f"{counted} and replayed {launches}; {want} a forward expected")
@@ -2790,6 +2936,10 @@ def igev_phase(card: str) -> dict:
         infer(left, right)
         torch.cuda.synchronize()
     ops = [e for e in device_events(prof) if "Memcpy" not in e.name]
+    library_bn = sorted({e.name for e in ops if any(b in e.name for b in LIBRARY_BN)})
+    if library_bn or sum(BN_ACT in e.name for e in ops) != BN_SITES["igev_stereo"]:
+        raise AssertionError(f"igev: a replay ran {sum(BN_ACT in e.name for e in ops)} epilogues and the library's "
+                             f"BatchNorm kernels {library_bn}")
     graphed_runs = times_ms(lambda: infer(left, right))
     with torch.inference_mode():
         eager_runs = times_ms(lambda: model(left, right)[-1])
@@ -2806,7 +2956,8 @@ def igev_phase(card: str) -> dict:
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase igev: 384x1248, {iters} iterations, float16: replay equal to eager, {launches['gwc_volume']} "
         f"group-wise volume, {launches['geo_lookup']} lookups, {launches['instance_norm']} instance norms and "
-        f"{', '.join(f'{launches[k]} {k}' for k in GRU_KERNELS)} a replay, {out['device_ops_a_replay']} device "
+        f"{', '.join(f'{launches[k]} {k}' for k in GRU_KERNELS)}, {launches['bn_act']} BatchNorm epilogues a "
+        f"replay, {out['device_ops_a_replay']} device "
         f"ops; graphed {out['ms_per_forward']:.2f} ms, eager {out['eager_ms_per_forward']:.2f} ms a forward "
         f"(medians of {RUNS}); capture {out['capture_ms']:.1f} ms, pool {out['pool_bytes']} bytes, peak reserved "
         f"{out['peak_reserved_gb']:.2f} GB; wall {out['wall_s']:.1f} s [{card}]")
@@ -2816,8 +2967,8 @@ def igev_phase(card: str) -> dict:
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--only", choices=["raft", "igev"],
-                   help="raft: the build, RAFT's three kernel checks and the RAFT phase alone (items 1 and 12); "
-                        "igev: the build, IGEV's two kernel checks and the IGEV phase alone (items 1 and 13)")
+                   help="raft: the build, RAFT's four kernel checks and the RAFT phase alone (items 1 and 12); "
+                        "igev: the build, IGEV's three kernel checks and the IGEV phase alone (items 1 and 13)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2855,15 +3006,17 @@ def main(argv: list[str] | None = None) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.only == "raft":
-        kernels = [check_corr1d_lookup(gen), check_instance_norm(gen), check_conv_gru(gen)]
+        kernels = [check_corr1d_lookup(gen), check_instance_norm(gen), check_conv_gru(gen),
+                   check_bn_act(gen, "raft_stereo")]
     elif args.only == "igev":
-        kernels = [check_geo_lookup(gen), check_gwc_volume(gen)]
+        kernels = [check_geo_lookup(gen), check_gwc_volume(gen), check_bn_act(gen, "igev_stereo")]
     else:
         kernels = [
             check_cost_volume(gen), check_fused_pair(gen), check_regression(gen, sm_clock_hz),
             check_conv3d_bn_s1(gen), check_conv3d_bn_down(gen), check_deconv3d_bn(gen),
             check_correlation(gen), check_gband_conv_s1(gen), check_corr1d_lookup(gen), check_instance_norm(gen),
-            check_conv_gru(gen), check_geo_lookup(gen), check_gwc_volume(gen),
+            check_conv_gru(gen), check_geo_lookup(gen), check_gwc_volume(gen), check_bn_act(gen, "raft_stereo"),
+            check_bn_act(gen, "igev_stereo"),
         ]
         ranges = check_cost_volume_ranges(gen)
         for k in kernels:
@@ -2889,7 +3042,8 @@ def main(argv: list[str] | None = None) -> int:
     # the RAFT path the lookup, the instance norm and the ConvGRU: a replay's)
     main_path = {"cost_volume_correlation": "basic_correlation", "gband_conv_s1": "train_sceneflow_single",
                  "corr1d_lookup": "raft_stereo", "instance_norm": "raft_stereo", "conv_gru": "raft_stereo",
-                 "geo_lookup": "igev_stereo", "gwc_volume": "igev_stereo"}
+                 "geo_lookup": "igev_stereo", "gwc_volume": "igev_stereo", "bn_act_raft": "raft_stereo",
+                 "bn_act_igev": "igev_stereo"}
     for k in kernels:
         # a row of several kernels, each with a counter (the ConvGRU's), reads each kernel's count
         by_path = {p: {n: r["launches"][n] for n in k["kernels"]} if "kernels" in k else r["launches"][k["name"]]

@@ -34,7 +34,11 @@ lookup (``ops/cuda_geo_lookup.py``) writes channels-last.
 
 Precision. ``dtype`` float16 is the published ``--mixed_precision``, written
 as explicit casts where autocast casts: every convolution in ``dtype``, the
-BatchNorms' parameters and statistics float32. The volume's products and
+BatchNorms' parameters and statistics float32. In eval each BatchNorm
+(MobileNetV2's, ``BasicConv``'s 2-D and 3-D, ``cnet``'s) is one epilogue
+over its convolution's output (``ops/bn_act.py``): the norm, the
+activation and the block's skip sum in float32, rounded once, where the
+published rounds after each under autocast. The volume's products and
 means are float32, rounded once (published: float16 products under
 autocast). The classifier's logits are widened to float32 for the softmax
 and the regression; the GEV and the correlation pyramids, the disparity and
@@ -73,13 +77,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ecm_torch.models.raft_stereo import CL, ConvGRU, InstanceNorm, MultiBasicEncoder, RAFTStereo, interp, pool2x
+from ecm_torch.ops.bn_act import SLOPE, norm_act
 from ecm_torch.ops.cuda_corr1d import corr_pyramid
 from ecm_torch.ops.cuda_cost_volume import cost_volume_correlation
 from ecm_torch.ops.cuda_geo_lookup import geo_lookup, geo_pyramid
 from ecm_torch.utils.profiling import span
 
 CL3 = torch.channels_last_3d
-SLOPE = 0.01  # nn.LeakyReLU()'s default, the published BasicConv's
 GROUPS = 8  # the group-wise volume's groups, and the GEV's channels
 # timm's mobilenetv2_100 stages: (blocks, width, stride, expansion), grouped
 # into IGEV's block0..block4 (layers [1, 2, 3, 5, 6])
@@ -108,7 +112,7 @@ class BasicConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
         if self.use_bn:
-            x = self.bn(x)
+            return norm_act(x, self.bn, "leaky_relu" if self.relu else None)
         return F.leaky_relu(x, SLOPE) if self.relu else x
 
 
@@ -154,8 +158,8 @@ class DepthwiseSeparable(nn.Module):
         self.skip = stride == 1 and cin == cout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.bn2(self.conv_pw(F.relu6(self.bn1(self.conv_dw(x)))))
-        return x + y if self.skip else y
+        y = norm_act(self.conv_dw(x), self.bn1, "relu6")
+        return norm_act(self.conv_pw(y), self.bn2, res=x if self.skip else None)
 
 
 class InvertedResidual(nn.Module):
@@ -175,9 +179,9 @@ class InvertedResidual(nn.Module):
         self.skip = stride == 1 and cin == cout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu6(self.bn1(self.conv_pw(x)))
-        y = self.bn3(self.conv_pwl(F.relu6(self.bn2(self.conv_dw(y)))))
-        return x + y if self.skip else y
+        y = norm_act(self.conv_pw(x), self.bn1, "relu6")
+        y = norm_act(self.conv_dw(y), self.bn2, "relu6")
+        return norm_act(self.conv_pwl(y), self.bn3, res=x if self.skip else None)
 
 
 def _stage(cin: int, blocks: int, cout: int, stride: int, expansion: int) -> nn.Sequential:
@@ -207,7 +211,7 @@ class Feature(nn.Module):
         self.conv4 = BasicConvIN(48, 48, kernel_size=3, stride=1, padding=1)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        x2 = self.block0(F.relu6(self.bn1(self.conv_stem(x))))
+        x2 = self.block0(norm_act(self.conv_stem(x), self.bn1, "relu6"))
         x4 = self.block1(x2)
         x8 = self.block2(x4)
         x16 = self.block3(x8)

@@ -28,7 +28,11 @@ written as explicit casts where autocast casts. The model holds every
 convolution's weight and bias in ``dtype`` (``load_state_dict`` of a
 float32 checkpoint rounds them, as autocast does at each call), so every
 convolution runs in ``dtype``; the BatchNorms' parameters and statistics
-stay float32, as cuDNN's NHWC kernel takes them. The GRUs' gates and state
+stay float32. In eval each of ``cnet``'s BatchNorms is one epilogue over
+its convolution's bias-free output (``ops/bn_act.py``): the convolution's
+bias, the norm, the ReLU and, at a residual block's end, the sum and the
+second ReLU in float32, rounded once, where the published rounds after
+each under autocast. The GRUs' gates and state
 updates (``ops/conv_gru.py``) add the biases and the context sums to the
 convolutions' ``dtype`` outputs in float32, apply the sigmoids, the tanh
 and the products in float32 and round once where they store (``z``,
@@ -70,6 +74,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ecm_torch.ops.bn_act import conv_norm
 from ecm_torch.ops.conv_gru import conv_gru_gate, conv_gru_pack, conv_gru_update
 from ecm_torch.ops.cuda_corr1d import corr1d_lookup, corr_pyramid
 from ecm_torch.ops.instance_norm import instance_norm
@@ -110,11 +115,14 @@ class ResidualBlock(nn.Module):
             self.downsample = nn.Sequential(nn.Conv2d(cin, cout, 1, stride=stride), self.norm3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.norm1(conv(self.conv1, x)))
-        y = F.relu(self.norm2(conv(self.conv2, y)))
+        """The published ``relu(x + relu(norm2(conv2(relu(norm1(conv1(x)))))))``,
+        ``x`` through the shortcut where there is one; with eval
+        BatchNorms, each norm one epilogue (``ops/bn_act.py``), the second
+        carrying the sum and the last ReLU."""
+        y = conv_norm(self.conv1, self.norm1, x, "relu")
         if self.downsample is not None:
-            x = self.norm3(conv(self.downsample[0], x))
-        return F.relu(x + y)
+            x = conv_norm(self.downsample[0], self.norm3, x)
+        return conv_norm(self.conv2, self.norm2, y, "relu", res=x, post="relu")
 
 
 def _layer(cin: int, cout: int, norm: str, stride: int) -> nn.Sequential:
@@ -133,7 +141,7 @@ class _Trunk(nn.Module):
         self.layer3 = _layer(96, 128, norm, 1 + (downsample > 0))
 
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.norm1(conv(self.conv1, x)))
+        x = conv_norm(self.conv1, self.norm1, x, "relu")
         return self.layer3(self.layer2(self.layer1(x)))
 
 

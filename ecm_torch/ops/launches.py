@@ -11,6 +11,7 @@ its own, :func:`read_replayed`, which :func:`reset_counts` also sets to 0.
 
 from __future__ import annotations
 
+from ecm_torch.ops import bn_act as bnk
 from ecm_torch.ops import conv_gru as grk
 from ecm_torch.ops import cuda_corr1d as corrk
 from ecm_torch.ops import cuda_cost_volume as cvk
@@ -39,6 +40,7 @@ COUNTERS = {
     "conv_gru_update": (grk.conv_gru_update, "launches"),
     "geo_lookup": (geok.geo_lookup, "launches"),
     "gwc_volume": (cvk.cost_volume_correlation, "group_launches"),
+    "bn_act": (bnk.bn_act, "launches"),
 }
 
 

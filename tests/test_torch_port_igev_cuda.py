@@ -3,9 +3,12 @@ the combined geometry lookup (``ecm_torch/csrc/geo_lookup.cu``) and the
 group-wise correlation volume (``csrc/cost_volume.cu``'s
 ``correlation_kernel`` at 8 groups) against their plain versions at the
 ``igev_kitti_b1`` cell's shapes (a 96x312 grid, 48 disparities, 96
-descriptor channels), ECM's one-group launch beside them, and the graphed
+descriptor channels), ECM's one-group launch beside them, the eval
+BatchNorm epilogue (``ops/bn_act.py``) against its plain version at the
+cell's MobileNetV2, ``BasicConv`` (2-D and 3-D) sites, and the graphed
 forward against the eager one at 64x128 with the published 32 iterations,
-in float16.
+in float16: its 104 epilogues a forward, no library BatchNorm in a replay,
+and a replay that reads a BatchNorm's statistics as they are.
 
 Marked ``cuda``: skipped without a GPU. The machine with the card has no
 JAX, so run these there without the JAX test setup:
@@ -17,6 +20,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ecm_torch.models import build_model
+from ecm_torch.ops import bn_act as bak
 from ecm_torch.ops import cuda_cost_volume as cvk
 from ecm_torch.ops.cuda_corr1d import corr_pyramid
 from ecm_torch.ops.cuda_geo_lookup import geo_lookup, geo_lookup_torch, geo_pyramid
@@ -30,6 +34,11 @@ GRU = ("conv_gru_pack", "conv_gru_gate", "conv_gru_update")
 # a forward's instance norms: the feature decoder's 7, the stems' 4 and the
 # descriptor's conv's 1, each on both images in one call
 NORMS = 12
+# a forward's eval BatchNorm epilogues: MobileNetV2's 48, cnet's 33, the
+# 2-D and 3-D BasicConvs' 23 (the volume's stem and excitation 2, the
+# hourglass 19, the upsampling's Conv2x 2)
+BN_SITES = 104
+LIBRARY_BN = ("bn_fw", "batch_norm")  # cuDNN's and ATen's BatchNorm kernels
 
 
 @pytest.fixture
@@ -131,15 +140,16 @@ def test_replay_equals_eager(dev):
     """Eager on the first call, captured on the second, replayed after; every
     answer equal to the eager forward bit for bit; the eager forward, the
     capture and each replay run one group-wise volume, ``ITERS`` lookups,
-    ``NORMS`` instance norms and ``3 ITERS`` ConvGRU cells and no other
-    kernel of the port, a replay's counted as replayed."""
+    ``NORMS`` instance norms, ``3 ITERS`` ConvGRU cells and ``BN_SITES``
+    BatchNorm epilogues and no other kernel of the port, a replay's counted
+    as replayed."""
     model = build_model("igev_stereo", device=dev, generator=torch.Generator().manual_seed(0),
                         dtype=torch.float16, iters=ITERS)
     infer = make_infer_fn(model)
     g = torch.Generator(device=dev).manual_seed(3)
     reqs = [tuple(torch.randn(1, 64, 128, 3, generator=g, device=dev) for _ in range(2)) for _ in range(3)]
-    want = (dict.fromkeys(COUNTERS, 0) | {"geo_lookup": ITERS, "gwc_volume": 1, "instance_norm": NORMS}
-            | dict.fromkeys(GRU, 3 * ITERS))
+    want = (dict.fromkeys(COUNTERS, 0) | {"geo_lookup": ITERS, "gwc_volume": 1, "instance_norm": NORMS,
+                                          "bn_act": BN_SITES} | dict.fromkeys(GRU, 3 * ITERS))
     reset_counts()
     first = infer(*reqs[0])
     assert not infer.graphs and read_counts() == want
@@ -197,3 +207,77 @@ def test_every_convolution_reads_channels_last_on_the_card(dev, monkeypatch):
     assert any("geo_lookup" in k for k in kernels), sorted(set(kernels))  # the profiler saw the card
     transposes = [k for k in kernels if "nchwToNhwc" in k or "nhwcToNchw" in k]
     print("layout transposes a forward:", len(transposes), sorted(set(transposes)))
+
+
+# the igev_kitti_b1 cell's epilogue forms (384x1248, max-disp 192; the
+# feature trunk on both images): (shape, act, residual); no bias, as every
+# convolution before a BatchNorm in IGEV-Stereo is bias-free
+BN_FORMS = {
+    "stem_1/2": ((2, 32, 192, 624), "relu6", False),
+    "expand_1/2": ((2, 96, 192, 624), "relu6", False),
+    "project_skip_1/4": ((2, 24, 96, 312), None, True),
+    "depthwise_1/4": ((2, 144, 96, 312), "relu6", False),
+    "expand_1/32": ((2, 960, 12, 39), "relu6", False),
+    "project_skip_1/32": ((2, 160, 12, 39), None, True),
+    "basic_conv_2d_1/4": ((1, 48, 96, 312), "leaky_relu", False),
+    "spx_2_gru_1/2": ((1, 64, 192, 624), "leaky_relu", False),
+    "corr_stem_3d": ((1, 8, 48, 96, 312), "leaky_relu", False),
+    "hourglass_3d_1/8": ((1, 16, 24, 48, 156), "leaky_relu", False),
+    "hourglass_3d_1/32": ((1, 48, 6, 12, 39), "leaky_relu", False),
+    "no_act_3d": ((1, 16, 24, 48, 156), None, False),
+}
+
+
+@pytest.mark.parametrize("form", BN_FORMS)
+def test_bn_act_kernel_matches_plain(dev, form):
+    """The kernel against the plain version on the same values (the same
+    float32 expression, the card's ``rsqrt`` and fused multiply-adds a few
+    float32 units in the last place apart, at most one float16 unit after
+    the rounding); in place, in the map's layout, one launch counted."""
+    shape, act, with_res = BN_FORMS[form]
+    g = torch.Generator(device=dev).manual_seed(10)
+    c, fmt = shape[1], torch.channels_last if len(shape) == 4 else torch.channels_last_3d
+    bn = (torch.nn.BatchNorm2d if len(shape) == 4 else torch.nn.BatchNorm3d)(c).to(dev).eval().requires_grad_(False)
+    bn.running_mean.copy_(2 * torch.randn(c, generator=g, device=dev))
+    bn.running_var.copy_(0.1 + 3 * torch.rand(c, generator=g, device=dev))
+    bn.weight.copy_(torch.randn(c, generator=g, device=dev))
+    bn.bias.copy_(torch.randn(c, generator=g, device=dev) + 3)
+    y, res = ((s * torch.randn(shape, generator=g, device=dev)).half().contiguous(memory_format=fmt) for s in (3, 1))
+    res = res if with_res else None
+    ref = bak.bn_act_torch(y.clone(), bn, None, act, res)
+    reset_counts()
+    got = bak.bn_act(y, bn, None, act, res)
+    torch.cuda.synchronize()
+    assert got is y and got.is_contiguous(memory_format=fmt)
+    assert read_counts() == dict.fromkeys(COUNTERS, 0) | {"bn_act": 1}
+    eps = torch.finfo(torch.float32).eps
+    torch.testing.assert_close(got.float(), ref.float(), rtol=torch.finfo(torch.float16).eps + 8 * eps,
+                               atol=16 * eps * ref.float().abs().max().item())
+
+
+def test_replay_runs_no_library_batchnorm_and_reads_the_statistics(dev):
+    """A profiled replay of the eval forward runs ``BN_SITES`` epilogues and
+    no cuDNN or ATen BatchNorm kernel; MobileNetV2's stem BatchNorm's running
+    variance changed in place is read by the next replay, which equals the
+    eager forward under the new statistics bit for bit."""
+    model = build_model("igev_stereo", device=dev, generator=torch.Generator().manual_seed(0),
+                        dtype=torch.float16, iters=2)
+    infer = make_infer_fn(model)
+    g = torch.Generator(device=dev).manual_seed(5)
+    left, right = (torch.randn(1, 64, 128, 3, generator=g, device=dev) for _ in range(2))
+    infer(left, right)
+    infer(left, right)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        before = infer(left, right)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("bn_act_kernel" in k for k in kernels) == BN_SITES, sorted(set(kernels))
+    assert not [k for k in kernels if any(b in k for b in LIBRARY_BN)]
+    with torch.no_grad():
+        model.feature.bn1.running_var.mul_(4.0)
+    after = infer(left, right)
+    (captured,) = infer.graphs.values()
+    with torch.inference_mode():
+        eager = model(left, right)[-1]
+    assert captured.replays == 2 and infer.discards == 0
+    assert not torch.equal(after, before) and torch.equal(after, eager)

@@ -88,8 +88,11 @@ def test_every_convolution_reads_channels_last(model_and_params, monkeypatch):
     convolutions transpose nothing, and every ``nn.Conv2d``'s weight reaches
     one: each GRU's ``convz`` and ``convr`` stacked into one bias-free
     convolution, its ``convq`` bias-free (the gates and the update add their
-    biases), once an iteration. ``is_contiguous(memory_format=...)`` ignores
-    size-1 dimensions, so 1x1 weights and 1-pixel maps pass as they are."""
+    biases), once an iteration; and each convolution that an eval BatchNorm
+    of ``cnet`` follows bias-free (the epilogue of ``ops/bn_act.py`` adds
+    its bias), ``fnet``'s, before instance norms, with its bias.
+    ``is_contiguous(memory_format=...)`` ignores size-1 dimensions, so 1x1
+    weights and 1-pixel maps pass as they are."""
     _, model, _ = model_and_params
     seen, real = [], F.conv2d
 
@@ -104,12 +107,15 @@ def test_every_convolution_reads_channels_last(model_and_params, monkeypatch):
     names = {m: n for n, m in model.named_modules() if isinstance(m, nn.Conv2d)}
     ub = model.update_block
     stacked = {g: torch.cat([g.convz.weight, g.convr.weight]) for g in (ub.gru08, ub.gru16, ub.gru32)}
-    gru_convs = {m for g in stacked for m in (g.convz, g.convr, g.convq)}
+    blocks = [m for m in model.cnet.modules() if isinstance(m, raft_stereo.ResidualBlock)]
+    bias_free = {m for g in stacked for m in (g.convz, g.convr, g.convq)} | {model.cnet.conv1} | {
+        m for blk in blocks for m in (blk.conv1, blk.conv2, *(blk.downsample or ())[:1])}
+    assert len(bias_free) == 9 + 1 + 28 + 4
     reached, bad = [], []
     for w, b, x_cl, w_cl in seen:
         parts = [m for m in names if w is m.weight] or [
             m for g, s in stacked.items() if torch.equal(w, s) for m in (g.convz, g.convr)]
-        assert parts and (b is None) == (parts[0] in gru_convs), [names[m] for m in parts]
+        assert parts and (b is None) == (parts[0] in bias_free), [names[m] for m in parts]
         reached.append(parts)
         if not (x_cl and w_cl):
             bad.append(([names[m] for m in parts], x_cl, w_cl))

@@ -5,8 +5,11 @@ graphed forward against the eager one at 64x128 with the published 32
 iterations, in float16, an eager forward's kernels (no layout transpose: the
 model is channels-last, as cuDNN's float16 convolutions run), the
 channels-last instance norm's Triton kernels against ``F.instance_norm``,
-and the ConvGRU's three Triton kernels (``ops/conv_gru.py``) against their
-plain versions at the served size's three levels.
+the ConvGRU's three Triton kernels (``ops/conv_gru.py``) against their
+plain versions at the served size's three levels, and ``cnet``'s eval
+BatchNorm epilogue (``ops/bn_act.py``) against its plain version at the
+served size's sites, its 33 launches a forward, no library BatchNorm in a
+replay, and a replay that reads a BatchNorm's statistics as they are.
 
 Marked ``cuda``: skipped without a GPU. The machine with the card has no
 JAX, so run these there without the JAX test setup:
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from ecm_torch.models import build_model
+from ecm_torch.ops import bn_act as bak
 from ecm_torch.ops import conv_gru as cg
 from ecm_torch.ops.cuda_corr1d import corr1d_lookup, corr1d_lookup_torch, corr_pyramid
 from ecm_torch.ops.instance_norm import instance_norm
@@ -28,7 +32,10 @@ from ecm_torch.train.steps import make_infer_fn
 pytestmark = pytest.mark.cuda
 
 ITERS = 32
+CL = torch.channels_last
 GRU = ("conv_gru_pack", "conv_gru_gate", "conv_gru_update")  # the ConvGRU's counters, one a kernel
+BN_SITES = 33  # cnet's eval BatchNorms: the stem's, 2 in each of 14 residual blocks, 4 shortcuts
+LIBRARY_BN = ("bn_fw", "batch_norm")  # cuDNN's and ATen's BatchNorm kernels
 
 
 @pytest.fixture
@@ -91,15 +98,16 @@ def test_replay_equals_eager_and_runs_32_lookups(dev):
     """Eager on the first call, captured on the second, replayed after; every
     answer equal to the eager forward bit for bit; the eager forward, the
     capture and each replay run ``ITERS`` lookups, ``fnet``'s 15 instance
-    norms and ``3 ITERS`` ConvGRU cells (each of its kernels ``3 ITERS``
-    times) and no other kernel of the port, a replay's counted as
-    replayed."""
+    norms, ``3 ITERS`` ConvGRU cells (each of its kernels ``3 ITERS``
+    times) and ``cnet``'s ``BN_SITES`` BatchNorm epilogues, and no other
+    kernel of the port, a replay's counted as replayed."""
     model = build_model("raft_stereo", device=dev, generator=torch.Generator().manual_seed(0),
                         dtype=torch.float16, iters=ITERS)
     infer = make_infer_fn(model)
     g = torch.Generator(device=dev).manual_seed(3)
     reqs = [tuple(torch.randn(1, 64, 128, 3, generator=g, device=dev) for _ in range(2)) for _ in range(3)]
-    want = dict.fromkeys(COUNTERS, 0) | {"corr1d_lookup": ITERS, "instance_norm": 15} | dict.fromkeys(GRU, 3 * ITERS)
+    want = dict.fromkeys(COUNTERS, 0) | {"corr1d_lookup": ITERS, "instance_norm": 15, "bn_act": BN_SITES} \
+        | dict.fromkeys(GRU, 3 * ITERS)
     reset_counts()
     first = infer(*reqs[0])
     assert not infer.graphs and read_counts() == want
@@ -230,3 +238,103 @@ def test_conv_gru_raises_on_what_it_does_not_take(dev):
     with pytest.raises(RuntimeError, match="requires grad"):
         cg.conv_gru_gate(m["zr"], m["bz"].clone().requires_grad_(), m["br"], m["cz"], m["cr"], m["h"],
                          cg.conv_gru_pack(m["h"], m["xs"]))
+
+
+# cnet's epilogue forms at the raft_kitti_b1 size (384x1248, n_downsample 2):
+# the stem and layer1 at full size, layer2 at 1/2, layer3 at 1/4 and the
+# 1/4 heads, layer4 at 1/8, layer5 at 1/16; every convolution has a bias
+BN_FORMS = {
+    "stem": ((1, 64, 384, 1248), "relu", False, None),
+    "block_end": ((1, 64, 384, 1248), "relu", True, "relu"),
+    "shortcut": ((1, 96, 192, 624), None, False, None),
+    "block_end_1/4": ((1, 128, 96, 312), "relu", True, "relu"),
+    "conv1_1/8": ((1, 128, 48, 156), "relu", False, None),
+    "block_end_1/16": ((1, 128, 24, 78), "relu", True, "relu"),
+}
+
+
+def bn_site(dev, shape, dtype, seed=9):
+    """An eval BatchNorm far from identity, a conv bias, a map and a
+    residual of ``shape``, channels-last."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[1]
+    bn = torch.nn.BatchNorm2d(c).to(dev).eval().requires_grad_(False)
+    bn.running_mean.copy_(2 * torch.randn(c, generator=g, device=dev))
+    bn.running_var.copy_(0.1 + 3 * torch.rand(c, generator=g, device=dev))
+    bn.weight.copy_(torch.randn(c, generator=g, device=dev))
+    bn.bias.copy_(torch.randn(c, generator=g, device=dev))
+    rnd = lambda scale: (scale * torch.randn(shape, generator=g, device=dev)).to(dtype, memory_format=CL)  # noqa: E731
+    return bn, (0.5 * torch.randn(c, generator=g, device=dev)).to(dtype), rnd(3.0), rnd(1.0)
+
+
+def assert_epilogue_matches_plain(bn, cb, y, res, act, post):
+    """The kernel's output against the plain version's on the same values:
+    the same float32 expression, with the card's ``rsqrt`` (a few float32
+    units in the last place) and fused multiply-adds, which a rounding to
+    the format turns into at most one unit of it. In place, channels-last,
+    one launch counted."""
+    ref = bak.bn_act_torch(y.clone(), bn, cb, act, res, post)
+    reset_counts()
+    got = bak.bn_act(y, bn, cb, act, res, post)
+    torch.cuda.synchronize()
+    assert got is y and read_counts() == dict.fromkeys(COUNTERS, 0) | {"bn_act": 1}
+    assert got.is_contiguous(memory_format=torch.channels_last if y.ndim == 4 else torch.channels_last_3d)
+    eps = torch.finfo(torch.float32).eps
+    torch.testing.assert_close(got.float(), ref.float(), rtol=torch.finfo(y.dtype).eps + 8 * eps,
+                               atol=16 * eps * ref.float().abs().max().item())
+
+
+@pytest.mark.parametrize("form", BN_FORMS)
+def test_bn_act_kernel_matches_plain(dev, form):
+    shape, act, with_res, post = BN_FORMS[form]
+    bn, cb, y, res = bn_site(dev, shape, torch.float16)
+    assert_epilogue_matches_plain(bn, cb, y, res if with_res else None, act, post)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_act_kernel_matches_plain_in_other_dtypes(dev, dtype):
+    bn, cb, y, res = bn_site(dev, (2, 96, 17, 23), dtype)
+    assert_epilogue_matches_plain(bn, cb, y, res, "relu", "relu")
+
+
+def test_bn_act_raises_on_what_it_does_not_take(dev):
+    bn, cb, y, res = bn_site(dev, (1, 64, 6, 10), torch.float16)
+    with pytest.raises(ValueError, match="channels-last"):
+        bak.bn_act(y.contiguous(), bn, cb, "relu")
+    with pytest.raises(ValueError, match="one of"):
+        bak.bn_act(y.double(), bn, None, "relu")
+    with pytest.raises(ValueError, match="on cpu"):
+        bak.bn_act(y, bn.cpu(), None, "relu")
+    bn.to(dev)
+    with pytest.raises(ValueError, match="res"):
+        bak.bn_act(y, bn, cb, "relu", res[:, :, :3].contiguous(memory_format=CL), "relu")
+    with pytest.raises(RuntimeError, match="no backward"):
+        bak.bn_act(y, bn.requires_grad_(True), cb, "relu")
+
+
+def test_replay_runs_no_library_batchnorm_and_reads_the_statistics(dev):
+    """A profiled replay of the eval forward runs ``cnet``'s ``BN_SITES``
+    epilogues and no cuDNN or ATen BatchNorm kernel; a BatchNorm's running
+    variance changed in place is read by the next replay, which equals the
+    eager forward under the new statistics bit for bit."""
+    model = build_model("raft_stereo", device=dev, generator=torch.Generator().manual_seed(0),
+                        dtype=torch.float16, iters=2)
+    infer = make_infer_fn(model)
+    g = torch.Generator(device=dev).manual_seed(5)
+    left, right = (torch.randn(1, 64, 128, 3, generator=g, device=dev) for _ in range(2))
+    infer(left, right)
+    infer(left, right)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        before = infer(left, right)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("bn_act_kernel" in k for k in kernels) == BN_SITES, sorted(set(kernels))
+    assert not [k for k in kernels if any(b in k for b in LIBRARY_BN)]
+    with torch.no_grad():
+        model.cnet.layer1[0].norm2.running_var.mul_(4.0)
+    after = infer(left, right)
+    (captured,) = infer.graphs.values()
+    with torch.inference_mode():
+        eager = model(left, right)[-1]
+    assert captured.replays == 2 and infer.discards == 0
+    assert not torch.equal(after, before) and torch.equal(after, eager)
